@@ -11,13 +11,22 @@ Phases, each printing its own lines and its seconds:
 2. kernel against its plain version: every kernel kind, ``P`` in {1, 2, 8}, training
    capacities ``C`` in {100, 128, 1000, 1024} with part of each capacity masked, and a pool
    size that is not a multiple of the kernel's block; then the quickstart's shapes
-   (D = 2, C in {8, 16, 32}, N = 5000); the kernel in fp32 against
+   (D = 2, C in {8, 16, 32}, N = 5000); then the edges of the kernel's tiles and blocks
+   (C in {8, 9, 31, 127, 129, 255, 256, 257, 513}, N in {1, 63, 64, 65, 127, 129},
+   D in {1, 3, 5, 7, 8, 9, 12, 20, 129, 300}) and one-hot operands (alpha = e_k, LinvT a
+   single non-zero row k, at D = 6 and at D = 129 and 300) that pin the tensor-core
+   fragment layout; the kernel in fp32 against
    ``fused_predict_reference`` in fp64 on the same inputs, within the TPU kernel's
    contract. A reported case over white-noise targets (rbf, C = 1024) prints the plain
    fp32 version's error beside the kernel's and is held to a small multiple of it;
-3. the production shape (N = 131072, C = 1024, D = 6, matern52, P = 1): the kernel, its
-   plain version and the unfused torch prediction (Gram, matmul, triangular solve), timed
-   with CUDA events, beside the card's fp32 bound for the work the function needs;
+3. the production shape (N = 131072, C = 1024, D = 6, matern52, P = 1): the kernel (with
+   its prologue, as the path launches it), the prologue alone, the plain version and the
+   unfused torch prediction (Gram, matmul, triangular solve), timed with CUDA events,
+   beside the card's bound for the work the function needs: three TF32 tensor-core
+   products per needed product (and, beside it, what three bf16 products each would
+   allow); and the kernel at the quickstart's shape and at the production shape with
+   D = 12, where the candidate rows live in shared memory and no longer in registers,
+   and with D = 128, where they and the training rows are read from global memory;
 4. the main path, convergence: the README quickstart on ScaledBranin with the
    default-noise ``build_gpr`` for up to 20 steps, held to rtol 0.005 of the minimum;
 5. the main path at full width: Hartmann6 with 1000 initial points (capacity 1024) and a
@@ -44,6 +53,9 @@ MEAN_RTOL, MEAN_ATOL = 1e-3, 3e-4  # the TPU kernel's contract (tests/unit/test_
 VAR_RTOL, VAR_ATOL = 5e-3, 3e-4
 WHITE_NOISE_FACTOR = 4.0  # the white-noise case's limit, in units of the plain fp32 error
 FP32_PEAK = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores, NVIDIA data sheet, 700 W
+TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s, same source
+BF16_PEAK = 990e12  # H100 SXM dense bf16 tensor-core FLOP/s, same source
+TF32_PASSES = 3  # tensor-core products per product of fp32-grade precision (hi/lo splits)
 HBM_RATE = 3.35e12  # H100 SXM device-memory bytes/s, same source
 QUICKSTART_SEED = 0
 QUICKSTART_STEPS = 20
@@ -105,6 +117,16 @@ def synthetic_state(kind, C, P, seed, device, D=6, white_noise=False):
     return params, cache, g
 
 
+def raw_kernel_and_plain(kind, xs, A, alpha, LinvT, scal):
+    """The kernel and its fp64 plain version on fp32 operands given as they are."""
+    from trieste_tpu_torch.ops import fused_predict as fp
+
+    out = fp.launch(kind, xs, A, alpha, LinvT, scal)
+    torch.cuda.synchronize()
+    operands = (xs, A, alpha, LinvT, scal)
+    return out, fp.fused_predict_reference(kind, *(t.double() for t in operands))
+
+
 def kernel_and_plain(params, cache, flat):
     """The kernel in fp32 and its plain version in fp64 on the same fp32 operands:
     ``(kernel out, fp64 plain out, fp32 operands)``."""
@@ -112,26 +134,30 @@ def kernel_and_plain(params, cache, flat):
 
     ops = fp.operands(params, cache, flat)
     args = (ops[0],) + tuple(t.float().contiguous() for t in ops[1:])
-    out = fp.launch(*args)
-    torch.cuda.synchronize()
-    plain = fp.fused_predict_reference(args[0], *(t.double() for t in args[1:]))
-    return out, plain, args
+    return (*raw_kernel_and_plain(*args), args)
 
 
-def fp32_bound(N, n, C, D, P):
+def bounds(N, n, C, D, P):
     """The least time the card needs for one call, from the work this call's data needs.
 
     ``n`` of the ``C`` training slots are live and ``LinvT`` is upper triangular on them,
     so ``v = K·L⁻ᵀ`` needs ``n(n+1)/2`` multiply-adds per row; r², the mean and ``Σv²``
-    need ``n·(D + P + 1)`` more. Returns ``(FLOP needed, dense FLOP 2·N·C·(C + D + P) as
-    the kernel executes it, bytes moved, bound ms, what bounds it)``.
+    need ``n·(D + P + 1)`` more. At fp32-grade precision the tensor cores take
+    ``TF32_PASSES`` TF32 products per needed product, so the operations run at
+    ``TF32_PEAK / TF32_PASSES`` at best; the fp32 FMA pipes alone would run them at
+    ``FP32_PEAK``. Three bf16 products each (hi/mid/lo splits of 8 mantissa bits, as the
+    TPU kernel takes them) would meet the same contract at ``BF16_PEAK / TF32_PASSES``: the
+    port's kernel does not take that route, and its time is shown against that floor too.
+    Returns ``(FLOP needed, bytes moved, bound ms, what bounds it, the bound ms on the fp32
+    FMA pipes, the bound ms with three bf16 products)``.
     """
     needed = N * n * (n + 1) + 2.0 * N * n * (D + P + 1)
-    dense = 2.0 * N * C * (C + D + P)
     nbytes = 4.0 * (N * D + C * D + C * P + C * C + 2 + N * P + N)
-    bound_ms = max(needed / FP32_PEAK, nbytes / HBM_RATE) * 1e3
-    bound_by = "operations" if needed / FP32_PEAK >= nbytes / HBM_RATE else "bytes"
-    return needed, dense, nbytes, bound_ms, bound_by
+    ops_s, bytes_s = needed * TF32_PASSES / TF32_PEAK, nbytes / HBM_RATE
+    bound_by = "operations" if ops_s >= bytes_s else "bytes"
+    fp32_fma_ms = max(needed / FP32_PEAK, bytes_s) * 1e3
+    bf16x3_ms = max(needed * TF32_PASSES / BF16_PEAK, bytes_s) * 1e3
+    return needed, nbytes, max(ops_s, bytes_s) * 1e3, bound_by, fp32_fma_ms, bf16x3_ms
 
 
 def check_on_path(label, model, space, n_pool, gen):
@@ -143,6 +169,10 @@ def check_on_path(label, model, space, n_pool, gen):
     pool = space.sample(gen, n_pool)
     if not fp.can_fuse(params, cache, pool):
         fail(f"{label}: the fitted model does not pass the fused gate")
+    dead = ~cache.mask
+    if (torch.count_nonzero(cache.LinvT.tril(-1)) or torch.count_nonzero(cache.LinvT[dead])
+            or torch.count_nonzero(cache.LinvT[:, dead]) or torch.count_nonzero(cache.alpha[dead])):
+        fail(f"{label}: the fitted model's LinvT is not upper triangular and zero on padding")
     out, plain, args = kernel_and_plain(params, cache, pool)
     em, ev, rm, rv, ok = compare(out, plain)
     C, D = args[2].shape
@@ -197,28 +227,56 @@ def main() -> int:
     # -- phase 2: kernel against its plain version ----------------------------------
     t_phase = time.perf_counter()
     worst = [0.0, 0.0, 0.0, 0.0]
-    # (D, N, P values, C values): the production grid with N not a multiple of the
-    # kernel's 32-row block, and the quickstart's shapes (D = 2, its 5000-point pool,
-    # capacities of one partly filled LinvT panel)
-    grids = [(6, 3001, (1, 2, 8), (100, 128, 1000, 1024)), (2, 5000, (1,), (8, 16, 32))]
+    # (D, N, P, C) by kind: the production grid with N not a multiple of the kernel's
+    # 128-row block; the quickstart's shapes (D = 2, its 5000-point pool, capacities of one
+    # partly filled LinvT tile); then, one kind each, the edges of the 32-row k tiles and
+    # 128-column panels in C and of the 64-row warpgroups and 128-row blocks in N
+    shapes = [(kind, 6, 3001, P, C) for kind in fp.KINDS for P in (1, 2, 8)
+              for C in (100, 128, 1000, 1024)]
+    shapes += [(kind, 2, 5000, 1, C) for kind in fp.KINDS for C in (8, 16, 32)]
+    edge_C, edge_N = (8, 9, 31, 127, 129, 255, 256, 257, 513), (1, 63, 64, 65, 127, 129)
+    shapes += [(fp.KINDS[i % 4], 6, 3001, 1, C) for i, C in enumerate(edge_C)]
+    shapes += [(fp.KINDS[i % 4], 6, N, 2, 100) for i, N in enumerate(edge_N)]
+    # input dimensions that are odd (padded to even), 1, above 8 (candidate rows in shared
+    # memory) or above 96 (candidate and training rows read from global memory)
+    edge_D = (1, 3, 5, 7, 8, 9, 12, 20, 129, 300)
+    shapes += [(fp.KINDS[i % 4], D, 1000, 1, 100) for i, D in enumerate(edge_D)]
     cases = 0
-    for D, n_pool, Ps, Cs in grids:
-        for kind in fp.KINDS:
-            for P in Ps:
-                for C in Cs:
-                    params, cache, g = synthetic_state(
-                        kind, C, P, seed=1000 * P + C, device=dev, D=D
-                    )
-                    flat = torch.rand(n_pool, D, generator=g, dtype=torch.float64, device=dev)
-                    out, plain, _ = kernel_and_plain(params, cache, flat)
-                    em, ev, rm, rv, ok = compare(out, plain)
-                    worst = [max(a, b) for a, b in zip(worst, (em, ev, rm, rv))]
-                    cases += 1
-                    print(f"phase 2 {kind} D={D} P={P} C={C} N={n_pool}: mean abs {em:.3e} "
-                          f"rel {rm:.3e}, var abs {ev:.3e} rel {rv:.3e} "
-                          f"{'ok' if ok else 'OUT OF TOLERANCE'}")
-                    if not ok:
-                        fail(f"kernel disagrees with its plain version: {kind} D={D} P={P} C={C}")
+    for kind, D, n_pool, P, C in shapes:
+        params, cache, g = synthetic_state(kind, C, P, seed=1000 * P + C, device=dev, D=D)
+        flat = torch.rand(n_pool, D, generator=g, dtype=torch.float64, device=dev)
+        out, plain, _ = kernel_and_plain(params, cache, flat)
+        em, ev, rm, rv, ok = compare(out, plain)
+        worst = [max(a, b) for a, b in zip(worst, (em, ev, rm, rv))]
+        cases += 1
+        print(f"phase 2 {kind} D={D} P={P} C={C} N={n_pool}: mean abs {em:.3e} "
+              f"rel {rm:.3e}, var abs {ev:.3e} rel {rv:.3e} "
+              f"{'ok' if ok else 'OUT OF TOLERANCE'}")
+        if not ok:
+            fail(f"kernel disagrees with its plain version: {kind} D={D} P={P} C={C} N={n_pool}")
+    # One-hot operands: alpha = e_k makes mean[i] = K[i, k] + m and a LinvT whose only
+    # non-zero row is k makes var[i] = σ² − K[i, k]²·Σ_j LinvT[k, j]², so a fragment whose
+    # rows or k index were permuted would show in row i's outputs.
+    one_hot = [(k, C, 6) for k, C in ((0, 64), (1, 64), (4, 64), (5, 64), (9, 64), (37, 64),
+                                      (300, 1024), (1023, 1024))] + [(37, 64, 129), (300, 1024, 300)]
+    for k, C, D in one_hot:
+        g = torch.Generator(device=dev).manual_seed(k)
+        scale = (6 / D) ** 0.5  # r² of the same order at every D
+        spread = torch.linspace(0.25, 1.75, 257, device=dev)[:, None]  # and rows that differ
+        xs = scale * spread * torch.rand(257, D, generator=g, device=dev)
+        A = scale * torch.rand(C, D, generator=g, device=dev)
+        alpha = torch.zeros(C, 1, device=dev)
+        alpha[k] = 1.0
+        LinvT = torch.zeros(C, C, device=dev)
+        LinvT[k, k:] = torch.randn(C - k, generator=g, device=dev) / (C - k) ** 0.5
+        scal = torch.tensor([1.7, 0.25], device=dev)
+        em, ev, rm, rv, ok = compare(*raw_kernel_and_plain("rbf", xs, A, alpha, LinvT, scal))
+        worst = [max(a, b) for a, b in zip(worst, (em, ev, rm, rv))]
+        cases += 1
+        print(f"phase 2 one-hot k={k} rbf D={D} P=1 C={C} N=257: mean abs {em:.3e}, var abs "
+              f"{ev:.3e} {'ok' if ok else 'OUT OF TOLERANCE'}")
+        if not ok:
+            fail(f"kernel disagrees with its plain version on one-hot operands: k={k} C={C} D={D}")
     print(f"phase 2 kernel vs plain (fp64): {cases} cases within mean rtol {MEAN_RTOL} atol "
           f"{MEAN_ATOL}, var rtol {VAR_RTOL} atol {VAR_ATOL}; max abs err mean {worst[0]:.3e} "
           f"var {worst[1]:.3e}, max rel err mean {worst[2]:.3e} var {worst[3]:.3e}")
@@ -277,17 +335,55 @@ def main() -> int:
         fail("kernel disagrees with its plain version at the production shape")
     max_abs_err = max(max_abs_err, em, ev)
     kernel_ms = median_ms(lambda: fp.launch(*args), reps=30)
+    prologue_ms = median_ms(lambda: fp.pack(*args[2:5]), reps=30)
     plain_ms = median_ms(lambda: fp.fused_predict_reference(*args), reps=20)
     unfused_ms = median_ms(lambda: _predict_f_flat_reference(params, cache, flat), reps=20)
-    flops, dense, nbytes, bound_ms, bound_by = fp32_bound(N, int(cache.mask.sum()), C, D, P)
-    dense_ms = dense / FP32_PEAK * 1e3
-    print(f"phase 3 production shape N={N} C={C} D={D} matern52 P={P}: kernel {kernel_ms:.3f} ms, "
+    flops, nbytes, bound_ms, bound_by, bound_ms_fp32_fma, bound_ms_bf16x3 = bounds(
+        N, int(cache.mask.sum()), C, D, P
+    )
+    dense_ms = 2.0 * N * C * (C + D + P) / FP32_PEAK * 1e3  # all of LinvT, on the fp32 FMA pipes
+    # every block of 128 rows streams the whole packed LinvT (hi and lo, the tiles on or
+    # above the diagonal) from L2 once
+    packed_bytes = fp.library().fused_predict_packed_bytes(C, D, P)
+    l2_bytes = packed_bytes * ((N + 127) // 128)
+    print(f"phase 3 production shape N={N} C={C} D={D} matern52 P={P}: kernel {kernel_ms:.3f} ms "
+          f"(of which the prologue that splits and packs LinvT {prologue_ms:.3f} ms), "
           f"plain fp32 {plain_ms:.3f} ms, unfused torch (Gram, matmul, solve_triangular) "
-          f"{unfused_ms:.3f} ms; fp32 bound {bound_ms:.3f} ms ({flops:.4e} FLOP needed, LinvT "
-          f"upper triangular, at {FP32_PEAK / 1e12:.0f} TFLOP/s fp32 without tensor cores; "
-          f"{nbytes:.4e} B at {HBM_RATE / 1e12:.2f} TB/s) = {100 * bound_ms / kernel_ms:.1f}% "
-          f"of bound; dense count as executed {dense:.4e} FLOP = {dense_ms:.3f} ms "
-          f"({100 * dense_ms / kernel_ms:.1f}%, {dense / kernel_ms / 1e9:.2f} TFLOP/s executed)")
+          f"{unfused_ms:.3f} ms; bound {bound_ms:.3f} ms ({flops:.4e} FLOP needed, LinvT upper "
+          f"triangular, {TF32_PASSES} TF32 products each at {TF32_PEAK / 1e12:.0f} TFLOP/s dense; "
+          f"{nbytes:.4e} B at {HBM_RATE / 1e12:.2f} TB/s), bound by {bound_by} = "
+          f"{100 * bound_ms / kernel_ms:.1f}% of bound; on the fp32 FMA pipes at "
+          f"{FP32_PEAK / 1e12:.0f} TFLOP/s the bound was {bound_ms_fp32_fma:.3f} ms; with three "
+          f"bf16 products each at {BF16_PEAK / 1e12:.0f} TFLOP/s, which the kernel does not use, "
+          f"the floor is {bound_ms_bf16x3:.3f} ms = {100 * bound_ms_bf16x3 / kernel_ms:.1f}% of "
+          f"the kernel's time; packed LinvT "
+          f"{packed_bytes / 1e6:.3f} MB, read from L2 {l2_bytes / 1e9:.3f} GB per call")
+    if bound_ms > kernel_ms:
+        fail(f"the kernel ({kernel_ms:.3f} ms) beats its bound ({bound_ms:.3f} ms)")
+    qs_params, qs_cache, g = synthetic_state("matern52", 32, 1, seed=3, device=dev, D=2)
+    qs_flat = torch.rand(5000, 2, generator=g, dtype=torch.float64, device=dev)
+    _, _, qs_args = kernel_and_plain(qs_params, qs_cache, qs_flat)
+    quickstart_ms = median_ms(lambda: fp.launch(*qs_args), reps=30)
+    print(f"phase 3 quickstart shape N=5000 C=32 D=2 matern52 P=1: kernel {quickstart_ms:.4f} ms")
+    # the production shape at D = 12: the candidate rows are read from shared memory at
+    # every k step instead of living in registers
+    wide_D = 12
+    w_params, w_cache, g = synthetic_state("matern52", C, 1, seed=5, device=dev, D=wide_D)
+    w_flat = torch.rand(N, wide_D, generator=g, dtype=torch.float64, device=dev)
+    w_out, w_plain, w_args = kernel_and_plain(w_params, w_cache, w_flat)
+    em, ev, rm, rv, ok = compare(w_out, w_plain)
+    del w_plain
+    if not ok:
+        fail(f"kernel disagrees with its plain version at N={N} C={C} D={wide_D}")
+    max_abs_err = max(max_abs_err, em, ev)
+    wide_ms = median_ms(lambda: fp.launch(*w_args), reps=20)
+    print(f"phase 3 production shape at D={wide_D} (candidate rows in shared memory): kernel "
+          f"{wide_ms:.3f} ms, mean abs {em:.3e}, var abs {ev:.3e}")
+    # and at D = 128, beyond what shared memory holds: timing only, phase 2 checks D = 129
+    far = (torch.rand(N, 128, generator=g, device=dev), torch.rand(C, 128, generator=g, device=dev),
+           *w_args[3:])
+    far_ms = median_ms(lambda: fp.launch("matern52", *far), reps=10)
+    print(f"phase 3 production shape at D=128 (rows read from global memory): kernel {far_ms:.3f} ms")
     print(f"phase 3 seconds: {time.perf_counter() - t_phase:.2f}")
 
     # -- phase 4: main path, convergence ------------------------------------------
@@ -392,11 +488,20 @@ def main() -> int:
         "white_noise_abs_err": white_noise["abs_err"],
         "white_noise_plain_fp32_abs_err": white_noise["plain_fp32_abs_err"],
         "ms": kernel_ms,
+        "prologue_ms": prologue_ms,
+        "ms_quickstart_shape": quickstart_ms,
         "plain_ms": plain_ms,
         "unfused_torch_ms": unfused_ms,
         "bound_ms": bound_ms,
-        "bound_ms_dense": dense_ms,
         "bound_by": bound_by,
+        "bound_rate": f"TF32 tensor cores, {TF32_PASSES} products per needed product, "
+                      f"{TF32_PEAK / 1e12:.0f} TFLOP/s dense",
+        "bound_ms_fp32_fma": bound_ms_fp32_fma,
+        "bound_ms_bf16x3": bound_ms_bf16x3,
+        "ms_wide_shape": wide_ms,
+        "ms_global_rows_shape": far_ms,
+        "bound_ms_dense": dense_ms,
+        "route_detail": "wgmma tf32x3",
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -28,13 +28,14 @@ def device():
     return torch.device("cuda")
 
 
-def _state(kind, C, P, device, dtype=torch.float32, seed=0):
+def _state(kind, C, P, device, dtype=torch.float32, seed=0, D=4):
     g = torch.Generator(device=device).manual_seed(seed)
-    X = torch.rand(C, 4, generator=g, dtype=torch.float64, device=device)
-    Y = torch.cos(X @ torch.randn(4, P, generator=g, dtype=torch.float64, device=device))
+    X = torch.rand(C, D, generator=g, dtype=torch.float64, device=device)
+    Y = torch.cos(X @ torch.randn(D, P, generator=g, dtype=torch.float64, device=device))
     mask = torch.arange(C, device=device) < C - C // 4
     params = tpost.GPRParams(
-        kernel=stationary(kind, 1.3, [0.5, 0.6, 0.7, 0.8], dtype=torch.float64, device=device),
+        kernel=stationary(kind, 1.3, [0.5 + 0.1 * d for d in range(D)], dtype=torch.float64,
+                          device=device),
         noise_variance=torch.tensor(1e-3, dtype=torch.float64, device=device),
         mean_constant=torch.tensor(0.1, dtype=torch.float64, device=device),
     )
@@ -50,17 +51,68 @@ def _state(kind, C, P, device, dtype=torch.float32, seed=0):
     return params, cache, g
 
 
-@pytest.mark.parametrize("C, P", [(100, 1), (1000, 2), (1024, 8)])
-@pytest.mark.parametrize("kind", fp.KINDS)
-def test_kernel_matches_plain_version(device, kind, C, P):
-    params, cache, g = _state(kind, C, P, device)
-    flat = torch.rand(4099, 4, generator=g, device=device)
+# (kind, C, P, N, D): every kind at three capacities; then, one kind each, the edges of the
+# kernel's 32-row k tiles and 128-column panels (C), of its 64-row warpgroups and 128-row
+# blocks (N), and input dimensions that are odd (padded to even), 1, above 8 (candidate rows
+# in shared memory) or above 96 (candidate and training rows read from global memory)
+_EDGE_C = (8, 9, 31, 127, 128, 129, 255, 256, 257, 513)
+_EDGE_N = (1, 63, 64, 65, 127, 129)
+_EDGE_D = (1, 2, 3, 5, 7, 8, 9, 12, 20, 129, 300)
+_SHAPES = [(kind, C, P, 4099, 4) for kind in fp.KINDS for C, P in [(100, 1), (1000, 2), (1024, 8)]]
+_SHAPES += [(fp.KINDS[i % 4], C, 1, 4099, 4) for i, C in enumerate(_EDGE_C)]
+_SHAPES += [(fp.KINDS[i % 4], 100, 2, N, 4) for i, N in enumerate(_EDGE_N)]
+_SHAPES += [(fp.KINDS[i % 4], 100, 1, 1000, D) for i, D in enumerate(_EDGE_D)]
+
+
+@pytest.mark.parametrize("kind, C, P, N, D", _SHAPES)
+def test_kernel_matches_plain_version(device, kind, C, P, N, D):
+    params, cache, g = _state(kind, C, P, device, D=D)
+    flat = torch.rand(N, D, generator=g, device=device)
     args = fp.operands(params, cache, flat)
     mean, var = fp.launch(*args)
     torch.cuda.synchronize()
     want_mean, want_var = fp.fused_predict_reference(args[0], *(t.double() for t in args[1:]))
     torch.testing.assert_close(mean.double(), want_mean, **MEAN_TOL)
     torch.testing.assert_close(var.double(), want_var, **VAR_TOL)
+
+
+@pytest.mark.parametrize("k, C, D", [(0, 64, 6), (1, 64, 6), (4, 64, 6), (5, 64, 6), (9, 64, 6),
+                                     (37, 64, 6), (300, 1024, 6), (1023, 1024, 6),
+                                     (37, 64, 129), (300, 1024, 300)])
+def test_one_hot_operands_pin_the_fragment_layout(device, k, C, D):
+    """``alpha = e_k`` gives ``mean[i] = K[i, k] + m``; a ``LinvT`` whose only non-zero row
+    is ``k`` gives ``var[i] = σ² − K[i, k]²·Σ_j LinvT[k, j]²``: permuted rows or k indices
+    of the tensor-core fragments would show in row ``i``."""
+    g = torch.Generator(device=device).manual_seed(k)
+    scale = (6 / D) ** 0.5  # r² of the same order at every D
+    spread = torch.linspace(0.25, 1.75, 257, device=device)[:, None]  # and rows that differ
+    xs = scale * spread * torch.rand(257, D, generator=g, device=device)
+    A = scale * torch.rand(C, D, generator=g, device=device)
+    alpha = torch.zeros(C, 1, device=device)
+    alpha[k] = 1.0
+    LinvT = torch.zeros(C, C, device=device)
+    LinvT[k, k:] = torch.randn(C - k, generator=g, device=device) / (C - k) ** 0.5
+    scal = torch.tensor([1.7, 0.25], device=device)
+    mean, var = fp.launch("rbf", xs, A, alpha, LinvT, scal)
+    torch.cuda.synchronize()
+    want_mean, want_var = fp.fused_predict_reference(
+        "rbf", xs.double(), A.double(), alpha.double(), LinvT.double(), scal.double()
+    )
+    assert want_var.max() - want_var.min() > 0.1  # the rows differ, so a permutation shows
+    torch.testing.assert_close(mean.double(), want_mean, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(var.double(), want_var, rtol=1e-5, atol=2e-6)
+
+
+def test_pack_writes_only_the_tiles_on_or_above_the_diagonal(device):
+    params, cache, g = _state("rbf", 1024, 1, device)
+    _, _, A, alpha, LinvT, _ = fp.operands(params, cache, torch.rand(8, 4, generator=g, device=device))
+    packed = fp.pack(A, alpha, LinvT)
+    # the 8 panels of 128 columns hold 4, 8, ..., 32 k tiles of 32 rows: hi and lo tiles of
+    # 32 x 128 floats with the tile's 32 rows of A (D = 4) and alpha (P = 1)
+    assert packed.numel() == 144 * (2 * 32 * 128 + 32 * 4 + 32 * 1)
+    hi = packed[: 32 * 128]
+    assert torch.all(hi.view(torch.int32) & 0x1FFF == 0)  # TF32: the low 13 bits are zero
+    assert float(hi.abs().sum()) > 0.0
 
 
 def test_predict_f_launches_the_kernel_and_grads_flow(device):
@@ -101,3 +153,6 @@ def test_launch_rejects_what_the_kernel_does_not_take(device):
         fp.launch(args[0], args[1], args[2], args[3], args[4].T, args[5])
     with pytest.raises(ValueError, match="shape mismatch"):
         fp.launch(args[0], args[1][:, :3].contiguous(), *args[2:])
+    with pytest.raises(ValueError, match="unsupported sizes"):
+        fp.launch(args[0], torch.zeros(100, 0, device=device),
+                  torch.zeros(64, 0, device=device), *args[3:])

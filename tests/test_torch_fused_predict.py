@@ -174,6 +174,40 @@ def test_small_pools_f64_and_large_states_fall_back(cpu_plain):
     assert not tfp.can_fuse(params, wide, x)
 
 
+def test_gate_has_no_limit_on_input_dimension(interpreted_pallas, cpu_plain):
+    """Like the JAX gate, the port's takes any number of input dimensions."""
+    d = 300
+    X = np.random.default_rng(0).uniform(size=(8, d))
+    Y = X.sum(-1, keepdims=True)
+    params = gpr_params_from_numpy("rbf", 1.7, [0.5] * d, 1e-3, 0.25, device="cpu", dtype=torch.float32)
+    cache = tpost.build_cache(params, torch.as_tensor(X, dtype=torch.float32),
+                              torch.as_tensor(Y, dtype=torch.float32), torch.ones(8, dtype=torch.bool))
+    assert tfp.can_fuse(params, cache, torch.zeros(64, d))
+    jparams = jpost.GPRParams(kernel=jstationary("rbf", 1.7, [0.5] * d, dtype=jnp.float32),
+                              noise_variance=jnp.asarray(1e-3, jnp.float32),
+                              mean_constant=jnp.asarray(0.25, jnp.float32))
+    jcache = jpost.build_cache(jparams, jnp.asarray(X, jnp.float32), jnp.asarray(Y, jnp.float32),
+                               jnp.ones(8, bool))
+    assert jfp.can_fuse(jparams, jcache, jnp.zeros((64, d), jnp.float32))
+
+
+def test_ablation_variants_derive_from_the_kernel_source():
+    """``tools/kernel_ablation.py`` builds its variants by substituting lines of the kernel
+    source: every line it looks for is still there, and every variant differs from it."""
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("kernel_ablation", root / "tools" / "kernel_ablation.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = tfp._SOURCE.read_text()
+    variants = tool.variants(src)
+    assert variants.pop("whole") == src
+    assert len(variants) == 7 and all(text != src for text in variants.values())
+    assert len(set(variants.values())) == 7
+
+
 def test_cpu_tensors_need_the_flag(monkeypatch):
     """Without the test flag a CPU tensor never takes the fused path: the gate's device
     rule is "on CUDA"."""
@@ -264,3 +298,107 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         tfp.build()
     assert not (tmp_path / "kernels").exists()
+
+
+# -- the arithmetic of the CUDA kernel's tensor-core product, modelled in plain torch ------
+
+
+def _round_tf32(x):
+    """fp32 -> the nearest TF32 value (10 mantissa bits, ties away from zero), as
+    ``cvt.rna.tf32.f32`` rounds: integer arithmetic on the bit pattern."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_model(kind, xs, A, alpha, LinvT, scal, passes):
+    """``fused_predict_reference`` in fp32 with ``v = K·LinvT`` as the kernel multiplies
+    it: both factors split into TF32 ``hi = rna(x)`` and ``lo = rna(x - hi)``, the products
+    ``K_lo·L_hi + K_hi·L_lo + K_hi·L_hi`` summed in fp32 (``passes=3``), or ``K_hi·L_hi``
+    alone (``passes=1``). A product of two TF32 values is exact in fp32."""
+    r2 = torch.zeros(xs.shape[0], A.shape[0])
+    for d in range(xs.shape[1]):
+        r2 += torch.square(xs[:, d : d + 1] - A[:, d])
+    K = scal[0] * tfp._stationary_fn(kind, r2)
+    mean = K @ alpha + scal[1]
+    K_hi, L_hi = _round_tf32(K), _round_tf32(LinvT)
+    v = K_hi @ L_hi
+    if passes == 3:
+        K_lo, L_lo = _round_tf32(K - K_hi), _round_tf32(LinvT - L_hi)
+        v = (K_lo @ L_hi + K_hi @ L_lo) + v
+    return mean, torch.clamp_min(scal[0] - torch.sum(v * v, dim=-1), 1e-24)
+
+
+def _synthetic_operands(kind, C, seed, white_noise=False, n_queries=96, D=6):
+    """fp32 kernel operands of a partly masked posterior of capacity ``C``; half of the
+    queries sit next to training points, where the variance is small."""
+    rng = np.random.default_rng(seed)
+    n = C - C // 5
+    X = np.zeros((C, D))
+    X[:n] = rng.uniform(size=(n, D))
+    Y = np.zeros((C, 1))
+    Y[:n] = rng.normal(size=(n, 1)) if white_noise else (
+        np.cos(X[:n] @ rng.normal(size=(D, 1))) + X[:n].sum(-1, keepdims=True))
+    params = gpr_params_from_numpy(kind, 1.7, [0.4 + 0.1 * d for d in range(D)], 1e-3, 0.25,
+                                   device="cpu", dtype=torch.float64)
+    mask = torch.arange(C) < n
+    cache = tpost.build_cache(params, torch.as_tensor(X), torch.as_tensor(Y), mask)
+    near = X[rng.integers(0, n, size=n_queries // 2)] + 1e-3 * rng.normal(size=(n_queries // 2, D))
+    flat = np.concatenate([near, rng.uniform(size=(n_queries - n_queries // 2, D))])
+    ops = tfp.operands(params, cache, torch.as_tensor(flat))
+    return (ops[0],) + tuple(t.float().contiguous() for t in ops[1:])
+
+
+def _errors(out, want):
+    (mean, var), (wmean, wvar) = out, want
+    em, ev = (mean.double() - wmean).abs(), (var.double() - wvar).abs()
+    ok_mean = bool((em <= MEAN_TOL["atol"] + MEAN_TOL["rtol"] * wmean.abs()).all())
+    ok_var = bool((ev <= VAR_TOL["atol"] + VAR_TOL["rtol"] * wvar.abs()).all())
+    return em.max().item(), ev.max().item(), ok_mean, ok_var
+
+
+def test_round_tf32_rounds_to_nearest_with_ties_away():
+    e = 2.0**-11  # half of the TF32 spacing just above 1
+    x = torch.tensor([1.0, 1.0 + e, 1.0 + e - 2.0**-23, -1.0 - e, 1.0 + 2 * e + e / 2, -7.25])
+    want = torch.tensor([1.0, 1.0 + 2 * e, 1.0, -1.0 - 2 * e, 1.0 + 2 * e, -7.25])
+    assert torch.equal(_round_tf32(x), want)
+    y = torch.as_tensor(np.random.default_rng(0).normal(size=4096), dtype=torch.float32)
+    hi = _round_tf32(y)
+    assert torch.all(hi.view(torch.int32) & 0x1FFF == 0)  # 10 mantissa bits are left
+    assert torch.all((y - hi).abs() <= y.abs() * 2.0**-11)
+    assert torch.all((y - hi - _round_tf32(y - hi)).abs() <= y.abs() * 2.0**-22)
+
+
+@pytest.mark.parametrize("C", [100, 1024])
+@pytest.mark.parametrize("kind", tfp.KINDS)
+def test_tf32x3_product_keeps_the_contract(kind, C):
+    """Three TF32 products of hi/lo splits, accumulated in fp32, keep fp32-grade error:
+    the model stays inside the kernel's contract against the fp64 plain version, and
+    within twice the plain fp32 version's own variance error plus 2e-6."""
+    args = _synthetic_operands(kind, C, seed=C)
+    want = tfp.fused_predict_reference(args[0], *(t.double() for t in args[1:]))
+    em, ev, ok_mean, ok_var = _errors(_tf32_model(*args, passes=3), want)
+    assert ok_mean and ok_var, (em, ev)
+    _, ev32, _, _ = _errors(tfp.fused_predict_reference(*args), want)
+    assert ev <= 2.0 * ev32 + 2e-6, (ev, ev32)
+
+
+@pytest.mark.parametrize("C", [1024])
+def test_single_tf32_pass_breaks_the_variance_contract(C):
+    """Why three passes: one TF32 product carries 2^-11 relative error into ``v``, which
+    the variance ``σ² − Σv²`` (σ² = 1.7, small next to the data) does not survive."""
+    args = _synthetic_operands("matern52", C, seed=C)
+    want = tfp.fused_predict_reference(args[0], *(t.double() for t in args[1:]))
+    _, ev1, _, ok_var1 = _errors(_tf32_model(*args, passes=1), want)
+    _, ev3, _, ok_var3 = _errors(_tf32_model(*args, passes=3), want)
+    assert not ok_var1 and ev1 > VAR_TOL["atol"], ev1
+    assert ok_var3 and ev3 < ev1 / 50, (ev3, ev1)
+
+
+def test_tf32x3_product_on_white_noise_targets():
+    """White-noise targets make ``|alpha|`` large; the case is held to the contract or,
+    where the plain fp32 version breaks it too, to 4x that version's error."""
+    args = _synthetic_operands("rbf", 1024, seed=7, white_noise=True)
+    want = tfp.fused_predict_reference(args[0], *(t.double() for t in args[1:]))
+    em, ev, ok_mean, ok_var = _errors(_tf32_model(*args, passes=3), want)
+    em32, ev32, _, _ = _errors(tfp.fused_predict_reference(*args), want)
+    assert (ok_mean and ok_var) or (em <= 4.0 * em32 and ev <= 4.0 * ev32), (em, ev, em32, ev32)

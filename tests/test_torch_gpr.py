@@ -26,6 +26,7 @@ from trieste_tpu_torch.models.gp import training as ttrain
 from trieste_tpu_torch.models.gp.gpr import GaussianProcessRegression
 from trieste_tpu_torch.objectives import single_objectives as tobj
 from trieste_tpu_torch.observer import filter_finite
+from trieste_tpu_torch.ops import fused_predict as tfp
 from trieste_tpu_torch.space import Box
 
 torch.set_num_threads(1)
@@ -258,3 +259,36 @@ def test_gpr_model_update_optimize_predict():
     )
     with pytest.raises(ValueError, match="dimension"):
         model.update(Dataset.from_arrays(torch.zeros(2, 3, dtype=F64), torch.zeros(2, 1, dtype=F64)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_linvt_is_upper_triangular_as_the_kernel_assumes(dtype):
+    """The CUDA kernel skips the blocks of ``LinvT`` under the diagonal: ``build_cache``
+    must leave exact zeros there (and on padded slots), in both packages and dtypes."""
+    X, Y, cap = _problem(n=11, cap=16)
+    tdtype, jdtype = getattr(torch, dtype), getattr(jnp, dtype)
+    jds = JDataset.from_arrays(jnp.asarray(X, jdtype), jnp.asarray(Y, jdtype), capacity=cap)
+    jparams = jpost.GPRParams(
+        kernel=jstationary("matern52", 1.3, [0.3, 0.5], dtype=jdtype),
+        noise_variance=jnp.asarray(1e-2, jdtype), mean_constant=jnp.asarray(0.1, jdtype),
+    )
+    jcache = jpost.build_cache(jparams, jds.query_points, jds.observations, jds.mask)
+    tds = convert.dataset_from_numpy(np.asarray(jds.query_points), np.asarray(jds.observations),
+                                     int(jds.num_points), device="cpu", dtype=tdtype)
+    tparams = convert.gpr_params_from_numpy("matern52", 1.3, [0.3, 0.5], 1e-2, 0.1,
+                                            device="cpu", dtype=tdtype)
+    tcache = tpost.build_cache(tparams, tds.query_points, tds.observations, tds.mask)
+    assert tcache.LinvT.dtype == tdtype and int(tds.mask.sum()) == 11 < cap
+    for LinvT in (tcache.LinvT, torch.as_tensor(np.array(jcache.LinvT))):
+        assert LinvT.shape == (cap, cap)
+        assert torch.count_nonzero(LinvT.tril(-1)) == 0
+        assert torch.count_nonzero(LinvT[11:]) == 0 and torch.count_nonzero(LinvT[:, 11:]) == 0
+        assert torch.count_nonzero(LinvT.diagonal()[:11]) == 11
+    tol = dict(rtol=1e-9, atol=1e-12) if dtype == "float64" else dict(rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(tcache.LinvT.numpy(), np.asarray(jcache.LinvT), **tol)
+    # so dropping the lower triangle, as the kernel does, changes nothing
+    x = torch.as_tensor(np.random.default_rng(5).uniform(size=(40, 2)), dtype=tdtype)
+    args = tfp.operands(tparams, tcache, x)
+    mean, var = tfp.fused_predict_reference(*args)
+    mean_u, var_u = tfp.fused_predict_reference(*args[:4], args[4].triu(), args[5])
+    assert torch.equal(mean, mean_u) and torch.equal(var, var_u)

@@ -10,10 +10,15 @@ reads it back for the mean matmul and the triangular solve. The kernel in
     v = K·L⁻ᵀ,   var = max(σ² − Σ_j v², 1e-24),
 
 with the precomputed masked triangular inverse ``LinvT`` of the posterior cache, so the
-cross-covariance never leaves the chip. Everything is fp32 FMA: at least as accurate as
-the TPU kernel's 3-pass bf16 contract (mean rtol 1e-3 / atol 3e-4, variance rtol 5e-3 /
-atol 3e-4). Padded training slots are inert because ``alpha`` and ``LinvT`` are zero
-there (:func:`trieste_tpu_torch.models.gp.posterior.build_cache` keeps that invariant).
+cross-covariance never leaves the chip. ``r²``, ``k(r)`` and the mean are fp32 FMA;
+``v = K·L⁻ᵀ`` runs on the tensor cores as three TF32 products of round-to-nearest hi/lo
+splits (TF32x3), summed by the tensor cores over 32 training rows at a time and in fp32
+registers beyond that. That keeps fp32-grade error, inside the TPU kernel's 3-pass bf16
+contract (mean rtol 1e-3 / atol 3e-4, variance rtol 5e-3 / atol 3e-4). The kernel
+assumes what :func:`trieste_tpu_torch.models.gp.posterior.build_cache` guarantees:
+``LinvT`` is upper triangular, and ``alpha`` and the rows and columns of ``LinvT`` are
+zero on padded training slots, which keeps those slots inert. It never reads the blocks
+of ``LinvT`` that lie wholly under the diagonal.
 
 The kernel is built on first use with ``nvcc`` into ``build/kernels/`` beside the
 package, keyed by a hash of its source and flags, and bound through ``ctypes``. A CUDA
@@ -48,8 +53,7 @@ also keeps the kernel out of the small L-BFGS batches, whose gradients need the 
 path anyway)."""
 
 MAX_TRAIN = 1024
-"""Largest training capacity the kernel takes: its ``K[32, C]`` block must fit the
-227 KB of shared memory a block can use, and the JAX package gates at the same size."""
+"""Largest training capacity the kernel takes; the JAX package gates at the same size."""
 
 MAX_OUTPUTS = 8
 """Largest number of outputs ``P``: the kernel unrolls its mean reduction over them."""
@@ -108,19 +112,28 @@ def build() -> Path:
     return target
 
 
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a library built from ``csrc/fused_predict.cu`` and declare its C interface."""
+    lib = ctypes.CDLL(str(path))
+    lib.fused_predict_packed_bytes.argtypes = [ctypes.c_int] * 3
+    lib.fused_predict_packed_bytes.restype = ctypes.c_longlong
+    lib.fused_predict_pack.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.fused_predict_pack.restype = ctypes.c_int
+    lib.fused_predict_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    )
+    lib.fused_predict_launch.restype = ctypes.c_int
+    lib.fused_predict_error_string.argtypes = [ctypes.c_int]
+    lib.fused_predict_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.fused_predict_launch.argtypes = (
-                [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-            )
-            lib.fused_predict_launch.restype = ctypes.c_int
-            lib.fused_predict_error_string.argtypes = [ctypes.c_int]
-            lib.fused_predict_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = bind(build())
         return _lib
 
 
@@ -145,6 +158,35 @@ def fused_predict_reference(
     return mean, var
 
 
+def _check(lib: ctypes.CDLL, what: str, err: int) -> None:
+    if err != 0:
+        msg = lib.fused_predict_error_string(err).decode()
+        raise RuntimeError(f"fused_predict {what} failed: {msg} ({err})")
+
+
+def pack(A: torch.Tensor, alpha: torch.Tensor, LinvT: torch.Tensor, lib=None) -> torch.Tensor:
+    """The kernel's prologue, on the current stream: split ``LinvT`` into TF32 hi and lo
+    parts (round to nearest) and write them, with the rows of ``alpha`` (and of ``A`` where
+    ``D <= 8``), tile by tile in the order and shared-memory layout the main kernel
+    streams. Only the tiles that reach the diagonal or lie above it are written. Operands
+    as :func:`launch` checks them; ``lib`` is another build of the source loaded with
+    :func:`bind` (default: :func:`library`). Returns the scratch tensor."""
+    C, D = A.shape
+    P = alpha.shape[1]
+    lib = lib or library()
+    nbytes = lib.fused_predict_packed_bytes(C, D, P)
+    if nbytes < 0:
+        raise ValueError(f"unsupported sizes C={C}, D={D}, P={P}")
+    packed = torch.empty(nbytes // 4, dtype=torch.float32, device=A.device)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = lib.fused_predict_pack(
+            A.data_ptr(), alpha.data_ptr(), LinvT.data_ptr(), packed.data_ptr(), C, D, P, stream
+        )
+    _check(lib, "pack launch", err)
+    return packed
+
+
 def launch(
     kind: str,
     xs: torch.Tensor,
@@ -154,8 +196,12 @@ def launch(
     scal: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the CUDA kernel on the current stream; same contract as
-    :func:`fused_predict_reference` for fp32 CUDA tensors. Raises on anything else."""
-    global launches
+    :func:`fused_predict_reference` for fp32 CUDA tensors. Raises on anything else.
+
+    Precondition, not checked: ``LinvT`` is upper triangular (``LinvT[k, j] == 0`` for
+    ``k > j``) and zero on the rows and columns of padded training slots, as
+    :func:`trieste_tpu_torch.models.gp.posterior.build_cache` makes it. The kernel skips
+    the blocks under the diagonal instead of multiplying their zeros."""
     if kind not in KINDS:
         raise ValueError(f"unknown kernel kind {kind!r}")
     named = {"xs": xs, "A": A, "alpha": alpha, "LinvT": LinvT, "scal": scal}
@@ -175,21 +221,30 @@ def launch(
             f"shape mismatch: xs {tuple(xs.shape)}, A {tuple(A.shape)}, alpha "
             f"{tuple(alpha.shape)}, LinvT {tuple(LinvT.shape)}, scal {tuple(scal.shape)}"
         )
-    if not 1 <= C <= MAX_TRAIN or not 1 <= P <= MAX_OUTPUTS or N >= 2**31:
+    if not 1 <= C <= MAX_TRAIN or not 1 <= P <= MAX_OUTPUTS or D < 1 or N >= 2**31:
         raise ValueError(f"unsupported sizes N={N}, C={C}, D={D}, P={P}")
-    lib = library()
+    return launch_packed(kind, xs, A, pack(A, alpha, LinvT), scal, P)
+
+
+def launch_packed(
+    kind: str, xs: torch.Tensor, A: torch.Tensor, packed: torch.Tensor, scal: torch.Tensor,
+    P: int, lib=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The main kernel alone, on the current stream, over what :func:`pack` wrote from
+    this ``A`` for ``P`` outputs; operands as :func:`launch` checks them, ``lib`` as in
+    :func:`pack`. This is where the kernel is launched and counted."""
+    global launches
+    lib = lib or library()
+    (N, D), C = xs.shape, A.shape[0]
     mean = torch.empty((N, P), dtype=torch.float32, device=xs.device)
     var = torch.empty((N,), dtype=torch.float32, device=xs.device)
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         err = lib.fused_predict_launch(
-            KINDS.index(kind), xs.data_ptr(), A.data_ptr(), alpha.data_ptr(),
-            LinvT.data_ptr(), scal.data_ptr(), mean.data_ptr(), var.data_ptr(),
-            N, C, D, P, stream,
+            KINDS.index(kind), xs.data_ptr(), A.data_ptr(), packed.data_ptr(), scal.data_ptr(),
+            mean.data_ptr(), var.data_ptr(), N, C, D, P, stream,
         )
-    if err != 0:
-        msg = lib.fused_predict_error_string(err).decode()
-        raise RuntimeError(f"fused_predict kernel launch failed: {msg} ({err})")
+    _check(lib, "kernel launch", err)
     launches += 1
     return mean, var
 
@@ -198,8 +253,7 @@ def can_fuse(params, cache, flat: torch.Tensor) -> bool:
     """The JAX package's gate (``trieste_tpu/ops/fused_predict.py:can_fuse``): stationary
     kernel, ``LinvT`` present, fp32, unbatched 2-D operands, ``P <= 8``, at least
     :data:`MIN_POINTS` queries, capacity at most :data:`MAX_TRAIN` and a noise/signal
-    ratio of at least 1e-5; then the query tensor must lie on a CUDA device (or
-    :data:`CPU_PLAIN` must be set)."""
+    ratio of at least 1e-5; then the query tensor must lie on a CUDA device (or :data:`CPU_PLAIN` must be set)."""
     kernel = params.kernel
     if kernel.kind not in KINDS or cache.LinvT is None:
         return False
