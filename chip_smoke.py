@@ -31,9 +31,34 @@ Phases, each printing its own lines and its seconds:
    default-noise ``build_gpr`` for up to 20 steps, held to rtol 0.005 of the minimum;
 5. the main path at full width: Hartmann6 with 1000 initial points (capacity 1024) and a
    131072-point seed pool, 2 steps;
-6. one JSON line describing each kernel. Its ``max_abs_err`` covers every case held to
-   the contract, including the kernel on the fitted models that phases 4 and 5 leave
+6. Ask/Tell with a batch rule at full width: the Hartmann6 data of phase 5 (1000 initial
+   points, capacity 1024), ``BatchMonteCarloExpectedImprovement(1000)`` over 4 query
+   points with the default optimizer (a 24-D joint space: 24,000 seeds, 240 runs); two
+   rounds of ask, observe, tell; then ``to_state`` and ``from_state`` and a third ask from
+   the restored optimizer, which must hold the same data and must not have refitted;
+7. Monte-Carlo EI through the kernel: one ask with ``MonteCarloExpectedImprovement(2000)``
+   on that model must launch the kernel, and the MC-EI scores of a seed pool through the
+   kernel path are held against the same scores from the exact fp64 prediction with the
+   same base draws, within the kernel's contract pushed through EI;
+8. Thompson sampling, convergence: ScaledBranin from 5 initial points through
+   ``BayesianOptimizer.optimize`` with ``DiscreteThompsonSampling(1000, 5)`` within 25
+   steps and with parallel continuous Thompson sampling (4 query points) within 20, both
+   to rtol 0.005 of the minimum. A seed-0 run that misses its budget is printed, seeds 1
+   to 4 are run too, and the phase fails unless at least four of the five pass;
+9. the asynchronous rule: ScaledBranin through Ask/Tell with
+   ``AsynchronousOptimization(BatchMonteCarloExpectedImprovement(1000), num_query_points=2)``,
+   one point of every batch told a round late so that the state holds pending points,
+   within 20 rounds to rtol 0.005 (seeds as in phase 8);
+10. Thompson sampling at full width: on the Hartmann6 model,
+   ``DiscreteThompsonSampling(N, 10, ThompsonSamplerFromTrajectory())`` with N the largest
+   power of two whose reckoned feature bytes stay under a quarter of the card's memory,
+   one acquire; and trajectories at a likelihood variance of 1e-7 in fp32 must be finite;
+11. one JSON line describing each kernel. Its ``max_abs_err`` covers every case held to
+   the contract, including the kernel on the fitted models that phases 4 to 7 leave
    behind; the white-noise case has keys of its own.
+
+Phases 6 to 10 each print their seconds, the bytes reckoned for their largest tensors and
+``torch.cuda.max_memory_allocated()``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before it; so does a machine without a CUDA device, or a directory without the package.
@@ -160,6 +185,20 @@ def bounds(N, n, C, D, P):
     return needed, nbytes, max(ops_s, bytes_s) * 1e3, bound_by, fp32_fma_ms, bf16x3_ms
 
 
+def fp64_state(params, dataset):
+    """A fitted model's hyperparameters in fp64 and the posterior cache of ``dataset``
+    factorized in fp64 under them."""
+    from trieste_tpu_torch.models.gp.posterior import build_cache
+
+    kernel = params.kernel.replace(variance=params.kernel.variance.double(),
+                                   lengthscales=params.kernel.lengthscales.double())
+    p64 = params.replace(kernel=kernel, noise_variance=params.noise_variance.double(),
+                         mean_constant=params.mean_constant.double())
+    cache = build_cache(p64, dataset.query_points.double(), dataset.observations.double(),
+                        dataset.mask, with_linvt=False)
+    return p64, cache
+
+
 def check_on_path(label, model, space, n_pool, gen):
     """Hold the kernel against its plain version on a fitted model of the main path, at
     the seed pool's size; return the larger max abs error of mean and var."""
@@ -184,23 +223,53 @@ def check_on_path(label, model, space, n_pool, gen):
     return max(em, ev)
 
 
+def memory_line(label: str, reckoned_bytes: float, t_phase: float) -> None:
+    """A phase's seconds, the bytes reckoned for it and the peak the allocator saw."""
+    torch.cuda.synchronize()
+    print(f"{label} seconds: {time.perf_counter() - t_phase:.2f}; reckoned peak "
+          f"{reckoned_bytes / 1e9:.3f} GB, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+
+def timed(fn):
+    """``fn()`` and the seconds it took, the device's work included."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def relative_error(best: float, minimum: float) -> float:
+    return abs(best - minimum) / abs(minimum)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from trieste_tpu_torch import BayesianOptimizer, logging
+    from trieste_tpu_torch import AskTellOptimizer, BayesianOptimizer, logging
     from trieste_tpu_torch.acquisition import (
+        AsynchronousOptimization,
+        BatchMonteCarloExpectedImprovement,
+        DiscreteThompsonSampling,
         EfficientGlobalOptimization,
+        MonteCarloExpectedImprovement,
+        ParallelContinuousThompsonSampling,
+        ThompsonSamplerFromTrajectory,
         generate_continuous_optimizer,
     )
+    from trieste_tpu_torch.acquisition.function.function import _mc_ei_fn, _min_posterior_mean
     from trieste_tpu_torch.models.gp import build_gpr
     from trieste_tpu_torch.models.gp.posterior import (
         GPRParams,
         _predict_f_flat_reference,
         build_cache,
         predict_f,
+        predict_f_reference,
     )
+    from trieste_tpu_torch.models.gp.sampler import IndependentReparametrizationSampler
     from trieste_tpu_torch.objectives import Hartmann6, ScaledBranin, mk_observer
     from trieste_tpu_torch.ops import fused_predict as fp
     from trieste_tpu_torch.ops.kernels import stationary
@@ -395,7 +464,7 @@ def main() -> int:
     initial = observer(space.sample(gen, 5))
     model = build_gpr(initial, space)
 
-    def reached(datasets, _models):
+    def reached(datasets, _models, _state=None):
         best = float(datasets["OBJECTIVE"].trimmed_observations.min())
         return abs(best - minimum) <= SCALED_BRANIN_RTOL * abs(minimum)
 
@@ -476,7 +545,270 @@ def main() -> int:
     max_abs_err = max(max_abs_err, check_on_path("phase 5", model, space, 131072, gen))
     print(f"phase 5 seconds: {time.perf_counter() - t_phase:.2f}")
 
-    # -- phase 6: kernels ------------------------------------------------------------
+    hartmann_space, hartmann_observer, hartmann_data = space, observer, initial
+
+    # -- phase 6: Ask/Tell with a batch rule at full width ---------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    S, B, C = 1000, 4, 1024
+    D = hartmann_space.dimension
+    n_seeds, n_runs = max(5000, 1000 * B * D), 10 * B * D
+    # seed scoring predicts jointly at n_seeds*B points: the cross-covariance [n, C], its
+    # transpose, the solve's result and its reshaped copy, and their product's operands;
+    # then the samples [n_seeds, S, B], their permuted copy and the improvement
+    reckoned = 5 * n_seeds * B * C * 4 + 3 * n_seeds * S * B * 4
+    gen = torch.Generator(device=dev).manual_seed(6)
+    model = build_gpr(hartmann_data, hartmann_space)
+    rule = EfficientGlobalOptimization(BatchMonteCarloExpectedImprovement(S), num_query_points=B)
+    fp.launches = 0
+    ask_tell, fit_s = timed(
+        lambda: AskTellOptimizer(hartmann_space, hartmann_data, model, rule, generator=gen)
+    )
+    ask_s, tell_s = [], []
+    for _ in range(2):
+        points, seconds = timed(ask_tell.ask)
+        ask_s.append(seconds)
+        if points.shape != (B, D) or not bool(hartmann_space.contains(points).all()):
+            fail(f"Ask/Tell batch: expected {B} points in the box, got {tuple(points.shape)}")
+        if len(torch.unique(points, dim=0)) != B:
+            fail("Ask/Tell batch: the batch repeats a point")
+        _, seconds = timed(lambda: ask_tell.tell(hartmann_observer(points)))
+        tell_s.append(seconds)
+    fitted = model.params
+    restored = AskTellOptimizer.from_state(
+        ask_tell.to_state(), hartmann_space,
+        EfficientGlobalOptimization(BatchMonteCarloExpectedImprovement(S), num_query_points=B),
+        generator=gen,
+    )
+    points, seconds = timed(restored.ask)
+    ask_s.append(seconds)
+    same_fit = restored.model.params is fitted and all(
+        torch.equal(a, b) for a, b in (
+            (restored.model.params.kernel.lengthscales, fitted.kernel.lengthscales),
+            (restored.model.params.kernel.variance, fitted.kernel.variance),
+            (restored.model.params.noise_variance, fitted.noise_variance),
+        )
+    )
+    same_data = len(restored.dataset) == 1000 + 2 * B and torch.equal(
+        restored.dataset.query_points, ask_tell.dataset.query_points
+    ) and torch.equal(restored.dataset.observations, ask_tell.dataset.observations)
+    if not (same_fit and same_data and restored.dataset.capacity == C):
+        fail("Ask/Tell batch: the restored optimizer refitted or holds other data")
+    if points.shape != (B, D) or not bool(torch.isfinite(points).all()):
+        fail("Ask/Tell batch: the restored optimizer's ask failed")
+    ask_tell_launches = fp.launches
+    print(f"phase 6 Ask/Tell Hartmann6 (1000 initial points, capacity {C}, "
+          f"BatchMonteCarloExpectedImprovement({S}), {B} query points, {n_seeds} seeds and "
+          f"{n_runs} runs in {B * D}-D): initial fit {fit_s:.3f} s; s per ask "
+          f"{[round(v, 3) for v in ask_s]} (the last from the restored state), s per tell "
+          f"{[round(v, 3) for v in tell_s]}; best {float(restored.dataset.trimmed_observations.min()):.5f}; "
+          f"restored: same data, no refit; kernel launches {ask_tell_launches}")
+    memory_line("phase 6", reckoned, t_phase)
+
+    # -- phase 7: Monte-Carlo EI through the kernel -----------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    S = 2000
+    data = restored.dataset
+    n_seeds = max(5000, 1000 * D)
+    reckoned = 3 * n_seeds * S * 4 + 2 * n_seeds * C * 4
+    fp.launches = 0
+    mc_rule = EfficientGlobalOptimization(MonteCarloExpectedImprovement(S))
+    mc_ask_tell = AskTellOptimizer(hartmann_space, data, model, mc_rule, generator=gen,
+                                   fit_model=False)
+    point, mc_ask_s = timed(mc_ask_tell.ask)
+    mc_ei_launches = fp.launches
+    if mc_ei_launches < 1:
+        fail("Monte-Carlo EI: the ask did not launch the fused kernel")
+    if point.shape != (1, D) or not bool(hartmann_space.contains(point).all()):
+        fail(f"Monte-Carlo EI: expected one point in the box, got {tuple(point.shape)}")
+    # the same scores by hand: eps drawn here, the kernel path (fp32, no_grad, a pool above
+    # the fused gate) against the exact prediction in fp64
+    eps = torch.randn(S, 1, 1, generator=gen, device=dev)
+    eta = _min_posterior_mean(model, data)
+    # half of the pool lies around the best observed points, where the improvement is not
+    # zero in every sample
+    best_rows = torch.argsort(data.trimmed_observations[:, 0])[:8]
+    near = data.trimmed_query_points[best_rows].repeat(n_seeds // 16, 1)
+    near = near + 0.03 * torch.randn(near.shape, generator=gen, device=dev)
+    near = torch.clamp(near, hartmann_space.lower, hartmann_space.upper)
+    pool = torch.cat([hartmann_space.sample(gen, n_seeds - near.shape[0]), near])
+    before = fp.launches
+    with torch.no_grad():
+        sampler = IndependentReparametrizationSampler(S, model, eps=eps)
+        got = _mc_ei_fn(sampler.sample, eta, pool[:, None, :])[:, 0].double()
+    if fp.launches != before + 1:
+        fail("Monte-Carlo EI: scoring the seed pool did not launch the fused kernel")
+    p64, c64 = fp64_state(model.params, model.dataset)
+    mean64, var64 = predict_f_reference(p64, c64, pool.double())  # [N, 1]
+    samples64 = mean64[:, None, :] + torch.sqrt(var64)[:, None, :] * eps[:, 0, :].double()
+    want = torch.clamp_min(eta.double() - samples64, 0.0).mean(dim=1)[:, 0]
+    # |ΔEI| <= |Δmean| + E|eps|·|Δsqrt(var)| and |sqrt(a) − sqrt(b)| <= sqrt(|a − b|)
+    mean_abs_eps = float(eps.abs().mean())
+    limit = (MEAN_ATOL + MEAN_RTOL * mean64[:, 0].abs()
+             + mean_abs_eps * torch.sqrt(VAR_ATOL + VAR_RTOL * var64[:, 0]))
+    err = (got - want).abs()
+    print(f"phase 7 Monte-Carlo EI ({S} samples, {n_seeds} seeds): ask {mc_ask_s:.3f} s, kernel "
+          f"launches {mc_ei_launches}; seed scores through the kernel against the exact fp64 "
+          f"prediction with the same eps: max abs err {float(err.max()):.3e} (scores up to "
+          f"{float(want.max()):.3e}, {int((want > 0).sum())} of them above 0), limit |Δmean| + E|eps|·sqrt(|Δvar|) from the kernel's "
+          f"contract, at least {float(limit.min()):.3e}")
+    if not bool((err <= limit).all()):
+        fail("Monte-Carlo EI: the kernel path's scores are outside the contract pushed through EI")
+    if int((want > 0).sum()) < 100:
+        fail("Monte-Carlo EI: the pool's scores are zero nearly everywhere, the check shows nothing")
+    max_abs_err = max(max_abs_err, check_on_path("phase 7", model, hartmann_space, n_seeds, gen))
+    memory_line("phase 7", reckoned, t_phase)
+
+    # -- phase 8: Thompson sampling, convergence --------------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    observer = mk_observer(ScaledBranin.objective)
+    space = ScaledBranin.search_space
+    # the exact sampler factorizes a [1000, 1000] joint covariance; PCTS evaluates 4
+    # trajectories of 1000 features at a 5000-point seed pool
+    reckoned = max(4 * 1000 * 1000 * 4, 3 * 5000 * 4 * 1000 * 4)
+
+    def thompson_run(make_rule, budget, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        initial = observer(space.sample(gen, 5))
+        t0 = time.perf_counter()
+        result = BayesianOptimizer(observer, space).optimize(
+            budget, initial, build_gpr(initial, space), make_rule(), generator=gen,
+            early_stop_callback=reached, track_state=False,
+        )
+        torch.cuda.synchronize()
+        if not result.is_ok:
+            fail(f"the Thompson run failed: {result.final_result.error!r}")
+        final = result.try_get_final_dataset()
+        best = float(final.trimmed_observations.min())
+        return best, len(final) - 5, time.perf_counter() - t0
+
+    thompson = {}
+    for name, make_rule, budget, batch in (
+        ("DiscreteThompsonSampling(1000, 5)", lambda: DiscreteThompsonSampling(1000, 5), 25, 5),
+        ("ParallelContinuousThompsonSampling, 4 query points", lambda: EfficientGlobalOptimization(
+            ParallelContinuousThompsonSampling(), num_query_points=4), 20, 4),
+    ):
+        runs = []
+        for seed in range(5):
+            best, evaluations, seconds = thompson_run(make_rule, budget, seed)
+            rel = relative_error(best, minimum)
+            runs.append(rel <= SCALED_BRANIN_RTOL)
+            steps = evaluations // batch
+            print(f"phase 8 {name} on ScaledBranin, seed {seed}: {steps} steps of {budget}, best "
+                  f"{best:.6f}, rel err {rel:.3e} (limit {SCALED_BRANIN_RTOL}), "
+                  f"{seconds / max(steps, 1):.3f} s/step {'ok' if runs[-1] else 'MISSED'}")
+            if seed == 0:
+                thompson[name] = steps
+                if runs[0]:
+                    break
+        if not runs[0] and sum(runs) < 4:
+            fail(f"{name}: {sum(runs)} of 5 seeds within rtol {SCALED_BRANIN_RTOL} in {budget} steps")
+    memory_line("phase 8", reckoned, t_phase)
+
+    # -- phase 9: the asynchronous rule through Ask/Tell --------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    S, B, rounds = 1000, 2, 20
+    n_seeds = max(5000, 1000 * B * 2)
+    # up to 2 pending points ride in front of every candidate batch
+    reckoned = 3 * n_seeds * S * (B + 2) * 4 + 5 * n_seeds * (B + 2) * 128 * 4
+    def asynchronous_run(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        initial = observer(space.sample(gen, 5))
+        ask_tell = AskTellOptimizer(
+            space, initial, build_gpr(initial, space),
+            AsynchronousOptimization(BatchMonteCarloExpectedImprovement(S), num_query_points=B),
+            generator=gen,
+        )
+        late, most_pending, used, ask_s, tell_s = None, 0, rounds, [], []
+        for round_ in range(1, rounds + 1):
+            points, seconds = timed(ask_tell.ask)
+            ask_s.append(seconds)
+            most_pending = max(most_pending, ask_tell.acquisition_state.pending_points.shape[0])
+            arrived = points[:1] if late is None else torch.cat([late, points[:1]])
+            late = points[1:]  # observed one round late
+            _, seconds = timed(lambda: ask_tell.tell(observer(arrived)))
+            tell_s.append(seconds)
+            if reached(ask_tell.datasets, None):
+                used = round_
+                break
+        best = float(ask_tell.dataset.trimmed_observations.min())
+        rel = relative_error(best, minimum)
+        ok = rel <= SCALED_BRANIN_RTOL
+        print(f"phase 9 AsynchronousOptimization(BatchMonteCarloExpectedImprovement({S}), {B} "
+              f"query points) on ScaledBranin through Ask/Tell, one point told a round late, "
+              f"seed {seed}: {used} rounds of {rounds}, best {best:.6f}, rel err {rel:.3e} (limit "
+              f"{SCALED_BRANIN_RTOL}), up to {most_pending} pending points, median s per ask "
+              f"{statistics.median(ask_s):.3f}, per tell {statistics.median(tell_s):.3f} "
+              f"{'ok' if ok else 'MISSED'}")
+        if most_pending < 3:
+            fail("the asynchronous state never held a point beyond the batch just asked")
+        return ok, used, ask_tell.dataset
+
+    ok, asynchronous_rounds, branin = asynchronous_run(0)
+    if not ok:  # as in phase 8: the budget stays, four of five seeds must meet it
+        passed = sum(asynchronous_run(seed)[0] for seed in range(1, 5))
+        if passed < 4:
+            fail(f"the asynchronous rule: {passed} of 5 seeds within rtol {SCALED_BRANIN_RTOL} "
+                 f"in {rounds} rounds")
+    memory_line("phase 9", reckoned, t_phase)
+
+    # -- phase 10: Thompson sampling at full width --------------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    S, m = 10, model.num_rff_features
+    budget_bytes = torch.cuda.get_device_properties(0).total_memory / 4
+
+    def feature_bytes(n):  # the projection, its cosine and the contraction's copy, fp32
+        return 3 * n * S * m * 4
+
+    n_candidates = 2
+    while feature_bytes(2 * n_candidates) <= budget_bytes:
+        n_candidates *= 2
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rule = DiscreteThompsonSampling(n_candidates, S, ThompsonSamplerFromTrajectory())
+    points, seconds = timed(
+        lambda: rule.acquire_single(hartmann_space, model, restored.dataset, generator=gen)
+    )
+    if points.shape != (S, D) or not bool(hartmann_space.contains(points).all()):
+        fail(f"Thompson full width: expected {S} points in the box, got {tuple(points.shape)}")
+    print(f"phase 10 DiscreteThompsonSampling({n_candidates}, {S}, ThompsonSamplerFromTrajectory()) "
+          f"on the Hartmann6 model (capacity {C}, {m} features): one acquire {seconds:.3f} s, "
+          f"{len(torch.unique(points, dim=0))} distinct points, best posterior mean "
+          f"{float(model.predict(points)[0].min()):.5f}")
+    # the trajectories themselves, at a sample of the candidates: finite, and their mean
+    # over the draws follows the posterior mean (capacity above the feature count: the
+    # weight posterior took the design-matrix route)
+    x = hartmann_space.sample(gen, 4096)
+    draws = model.trajectory_sampler().get_trajectory(gen, 64)(x[:, None, :].expand(4096, 64, D))
+    post_mean, post_var = model.predict(x)
+    if not bool(torch.isfinite(draws).all()):
+        fail("Thompson full width: a trajectory on the Hartmann6 model is not finite")
+    corr = float(torch.corrcoef(torch.stack([draws[..., 0].mean(dim=1), post_mean[:, 0]]))[0, 1])
+    print(f"phase 10 64 trajectories at 4096 points of the Hartmann6 model: finite; their mean "
+          f"against the posterior mean: correlation {corr:.4f}, rms difference "
+          f"{float((draws[..., 0].mean(dim=1) - post_mean[:, 0]).square().mean().sqrt()):.4f}; "
+          f"their std {float(draws[..., 0].std(dim=1).mean()):.4f} against the posterior's "
+          f"{float(post_var.sqrt().mean()):.4f}")
+    if corr < 0.5:
+        fail("Thompson full width: the trajectories' mean does not follow the posterior mean")
+    # tiny noise in fp32: the README's fixed-noise recipe, capacity below the feature
+    # count, so the weight posterior takes the kernel-trick route
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tiny = build_gpr(branin, space, likelihood_variance=1e-7)
+    tiny.optimize(branin)
+    x = space.sample(gen, 4096)[:, None, :].expand(4096, 8, 2)
+    for seed in range(10):
+        out = tiny.trajectory_sampler().get_trajectory(gen, 8)(x)
+        if out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
+            fail(f"a trajectory at likelihood variance 1e-7 is not finite (draw {seed})")
+    print(f"phase 10 trajectories at likelihood variance 1e-7 in fp32 ({len(branin)} points, "
+          f"capacity {branin.capacity}, {tiny.num_rff_features} features): 10 draws of 8 finite")
+    memory_line("phase 10", feature_bytes(n_candidates), t_phase)
+
+    # -- phase 11: kernels -----------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "fused_predict",
         "route": "cuda",
@@ -484,6 +816,8 @@ def main() -> int:
         "replaces": "trieste_tpu/ops/fused_predict.py:163",
         "launches": full_width_launches,
         "launches_quickstart": quickstart_launches,
+        "launches_ask_tell_batch": ask_tell_launches,
+        "launches_monte_carlo_ei_ask": mc_ei_launches,
         "max_abs_err": max_abs_err,
         "white_noise_abs_err": white_noise["abs_err"],
         "white_noise_plain_fp32_abs_err": white_noise["plain_fp32_abs_err"],

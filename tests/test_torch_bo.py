@@ -149,7 +149,8 @@ def test_default_rule_and_early_stop():
     model = build_gpr(initial, space, num_kernel_samples=2)
     seen = []
 
-    def stop_after_two(datasets, models):
+    def stop_after_two(datasets, models, acquisition_state):
+        assert acquisition_state is None  # the default rule keeps no state
         seen.append(len(datasets["OBJECTIVE"]))
         return len(seen) > 2
 
@@ -179,8 +180,17 @@ def test_errors_end_the_run_as_err():
 
 
 def test_rule_takes_one_query_point():
-    with pytest.raises(ValueError, match="one query point"):
+    """The default builder (EI) scores one point at a time: a batch needs a builder, and a
+    batch acquired with EI all the same is refused by EI itself."""
+    with pytest.raises(ValueError, match="builder must be specified"):
         EfficientGlobalOptimization(num_query_points=2)
+    with pytest.raises(ValueError, match="greater than 0"):
+        EfficientGlobalOptimization(num_query_points=0)
+    (_, _), (tm, tds) = _models()
+    rule = EfficientGlobalOptimization(tfun.ExpectedImprovement(), num_query_points=2)
+    with pytest.raises(ValueError, match="batch sizes of one"):
+        rule.acquire_single(ScaledBranin.search_space.to("cpu", F64), tm, tds,
+                            generator=torch.Generator().manual_seed(0))
 
 
 @pytest.fixture()

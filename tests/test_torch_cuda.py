@@ -156,3 +156,115 @@ def test_launch_rejects_what_the_kernel_does_not_take(device):
     with pytest.raises(ValueError, match="unsupported sizes"):
         fp.launch(args[0], torch.zeros(100, 0, device=device),
                   torch.zeros(64, 0, device=device), *args[3:])
+
+
+# -- Ask/Tell, batch and Monte-Carlo acquisition, Thompson sampling on the card ---------
+
+
+def _fitted_branin(device, n=24):
+    from trieste_tpu_torch.models.gp import build_gpr
+    from trieste_tpu_torch.objectives import ScaledBranin, mk_observer
+
+    space = ScaledBranin.search_space
+    observer = mk_observer(ScaledBranin.objective)
+    gen = torch.Generator(device=device).manual_seed(0)
+    data = observer(space.sample(gen, n))
+    model = build_gpr(data, space, num_kernel_samples=2)
+    model.optimize(data)
+    return space, observer, gen, data, model
+
+
+def _rules():
+    from trieste_tpu_torch import acquisition as acq
+
+    small = acq.generate_continuous_optimizer(num_initial_samples=4096, num_optimization_runs=4)
+    return {
+        "batch-mc-ei": lambda: acq.EfficientGlobalOptimization(
+            acq.BatchMonteCarloExpectedImprovement(64), small, num_query_points=2),
+        "analytic-qei": lambda: acq.EfficientGlobalOptimization(
+            acq.BatchExpectedImprovement(32), small, num_query_points=2),
+        "mc-ei": lambda: acq.EfficientGlobalOptimization(acq.MonteCarloExpectedImprovement(64), small),
+        "mc-aei": lambda: acq.EfficientGlobalOptimization(
+            acq.MonteCarloAugmentedExpectedImprovement(64), small),
+        "pcts": lambda: acq.EfficientGlobalOptimization(
+            acq.ParallelContinuousThompsonSampling(), small, num_query_points=2),
+        "greedy-cts": lambda: acq.EfficientGlobalOptimization(
+            acq.GreedyContinuousThompsonSampling(), small, num_query_points=2),
+        "dts-exact": lambda: acq.DiscreteThompsonSampling(500, 2),
+        "dts-trajectory": lambda: acq.DiscreteThompsonSampling(
+            500, 2, acq.ThompsonSamplerFromTrajectory()),
+        "random": lambda: acq.RandomSampling(2),
+        "async": lambda: acq.AsynchronousOptimization(
+            acq.BatchMonteCarloExpectedImprovement(64), small, num_query_points=2),
+        "async-greedy": lambda: acq.AsynchronousGreedy(
+            acq.GreedyContinuousThompsonSampling(), small, num_query_points=2),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_rules()))
+def test_ask_tell_stays_on_the_card(device, name):
+    from trieste_tpu_torch import AskTellOptimizer
+
+    space, observer, gen, data, model = _fitted_branin(device)
+    opt = AskTellOptimizer(space, data, model, _rules()[name](), generator=gen, fit_model=False)
+    points = opt.ask()
+    assert points.is_cuda and points.shape[-1] == 2 and bool(space.contains(points).all())
+    opt.tell(observer(points))
+    assert opt.dataset.query_points.is_cuda and len(opt.dataset) == 24 + points.shape[0]
+    restored = AskTellOptimizer.from_state(opt.to_state(), space, _rules()[name](), generator=gen)
+    assert restored.ask().is_cuda
+
+
+def test_samplers_and_posterior_functions_stay_on_the_card(device):
+    from trieste_tpu_torch.acquisition import sampler as tts
+    from trieste_tpu_torch.models.gp import sampler as tsam
+
+    space, observer, gen, data, model = _fitted_branin(device)
+    x = space.sample(gen, 12).reshape(3, 4, 2)
+    outputs = [
+        *model.predict_joint(x), *model.predict_y(x), model.sample(gen, x, 5),
+        model.covariance_between_points(x, x[0]),
+        *model.conditional_predict_f(x, observer(x[0])),
+        model.conditional_predict_f_sample(gen, x, observer(x[0]), 5),
+        tsam.BatchReparametrizationSampler(8, model).sample(x, generator=gen),
+        tsam.IndependentReparametrizationSampler(8, model).sample(x, generator=gen),
+        tsam.DecoupledTrajectorySampler(model, 128).get_trajectory(gen, 4)(x),
+        model.trajectory_sampler().get_trajectory(gen, 4)(x),
+        tts.GumbelSampler().sample(model, 5, x[0], generator=gen),
+        tts.ExactThompsonSampler().sample(model, 5, x.reshape(-1, 2), generator=gen),
+        space.sample_halton(gen, 8), space.sample_sobol(8),
+    ]
+    for out in outputs:
+        assert out.is_cuda and bool(torch.isfinite(out).all())
+
+
+def test_a_generator_on_the_wrong_device_raises(device):
+    from trieste_tpu_torch import AskTellOptimizer
+    from trieste_tpu_torch.models.gp import sampler as tsam
+
+    space, observer, gen, data, model = _fitted_branin(device)
+    cpu_gen = torch.Generator().manual_seed(0)
+    with pytest.raises(ValueError, match="generator is on cpu"):
+        AskTellOptimizer(space, data, model, generator=cpu_gen, fit_model=False)
+    with pytest.raises(ValueError, match="generator is on cpu"):
+        _rules()["dts-exact"]().acquire_single(space, model, data, generator=cpu_gen)
+    with pytest.raises(ValueError, match="generator is on cpu"):
+        model.trajectory_sampler().get_trajectory(cpu_gen, 2)
+    with pytest.raises(ValueError, match="generator is on cpu"):
+        tsam.BatchReparametrizationSampler(4, model).sample(data.query_points[:3], generator=cpu_gen)
+
+
+def test_monte_carlo_ei_seed_scoring_launches_the_kernel(device):
+    from trieste_tpu_torch.acquisition import MonteCarloExpectedImprovement
+
+    space, observer, gen, data, model = _fitted_branin(device)
+    acq = MonteCarloExpectedImprovement(128).prepare_acquisition_function(model, data)
+    pool = space.sample(gen, 5000)[:, None, :]
+    before = fp.launches
+    with torch.no_grad():
+        scores = acq(pool)
+    assert fp.launches == before + 1 and scores.shape == (5000, 1) and scores.is_cuda
+    few = pool[:64].clone().requires_grad_(True)  # the optimizer's small batches: exact path
+    before = fp.launches
+    torch.autograd.grad(acq(few).sum(), few)
+    assert fp.launches == before

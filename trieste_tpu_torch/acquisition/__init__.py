@@ -1,5 +1,42 @@
 """Acquisition functions, optimizers and rules (counterpart of :mod:`trieste_tpu.acquisition`)."""
-from .function.function import ExpectedImprovement
-from .interface import AcquisitionFunction, AcquisitionFunctionBuilder, SingleModelAcquisitionBuilder
-from .optimizer import FailedOptimizationError, automatic_optimizer_selector, generate_continuous_optimizer
-from .rule import AcquisitionRule, EfficientGlobalOptimization
+from .function import (
+    BatchExpectedImprovement,
+    BatchMonteCarloExpectedImprovement,
+    ExpectedImprovement,
+    GreedyContinuousThompsonSampling,
+    MonteCarloAugmentedExpectedImprovement,
+    MonteCarloExpectedImprovement,
+    ParallelContinuousThompsonSampling,
+)
+from .interface import (
+    AcquisitionFunction,
+    AcquisitionFunctionBuilder,
+    GreedyAcquisitionFunctionBuilder,
+    SingleModelAcquisitionBuilder,
+    SingleModelGreedyAcquisitionBuilder,
+    SingleModelVectorizedAcquisitionBuilder,
+    VectorizedAcquisitionFunctionBuilder,
+)
+from .optimizer import (
+    FailedOptimizationError,
+    automatic_optimizer_selector,
+    batchify_joint,
+    batchify_vectorize,
+    generate_continuous_optimizer,
+    generate_random_search_optimizer,
+)
+from .rule import (
+    AcquisitionRule,
+    AsynchronousGreedy,
+    AsynchronousOptimization,
+    AsynchronousRuleState,
+    DiscreteThompsonSampling,
+    EfficientGlobalOptimization,
+    RandomSampling,
+)
+from .sampler import (
+    ExactThompsonSampler,
+    GumbelSampler,
+    ThompsonSampler,
+    ThompsonSamplerFromTrajectory,
+)

@@ -1,2 +1,14 @@
 """Acquisition-function builders."""
-from .function import ExpectedImprovement
+from .continuous_thompson_sampling import (
+    GreedyContinuousThompsonSampling,
+    ParallelContinuousThompsonSampling,
+    negate_trajectory_function,
+)
+from .function import (
+    BatchExpectedImprovement,
+    BatchMonteCarloExpectedImprovement,
+    ExpectedImprovement,
+    MonteCarloAugmentedExpectedImprovement,
+    MonteCarloExpectedImprovement,
+)
+from .utils import MultivariateNormalCDF, make_mvn_cdf, mvn_cdf

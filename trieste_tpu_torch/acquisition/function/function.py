@@ -1,5 +1,12 @@
-"""Analytic expected improvement (the EI part of
-:mod:`trieste_tpu.acquisition.function.function`). Minimization convention."""
+"""Expected-improvement acquisition functions (part of
+:mod:`trieste_tpu.acquisition.function.function`): analytic EI, its Monte-Carlo and
+augmented forms, and the batch forms (reparametrization-trick qEI and the analytic qEI).
+Minimization convention. The other improvement-family builders are not ported yet.
+
+A Monte-Carlo builder draws its base normal samples once, when the function is prepared,
+and the function closes over them: it is the same surface at every call of a step, which
+the optimizer's line search depends on. ``generator=None`` seeds those draws with 0 on the
+data's device at every preparation, so the surface is reproducible."""
 from __future__ import annotations
 
 import math
@@ -9,9 +16,11 @@ from typing import Callable, Optional
 import torch
 
 from ...data import Dataset
-from ...models.interfaces import ProbabilisticModel
+from ...models.interfaces import HasReparamSampler, ProbabilisticModel
+from ...utils.misc import new_generator
 from ..interface import AcquisitionFunction, SingleModelAcquisitionBuilder
-from ..utils import predictor
+from ..utils import joint_predictor, predictor
+from .utils import make_mvn_cdf, mvn_cdf
 
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
@@ -59,3 +68,184 @@ class ExpectedImprovement(SingleModelAcquisitionBuilder):
 
     def __repr__(self) -> str:
         return "ExpectedImprovement()"
+
+
+def _mc_ei_fn(sample: Callable, eta: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Monte-Carlo EI from frozen reparametrization samples, ``x: [..., 1, D] -> [..., 1]``."""
+    samples = sample(_single_batch(x, "monte_carlo_expected_improvement"))  # [..., S, 1, L]
+    improvement = torch.clamp_min(eta - samples[..., 0, :], 0.0)  # [..., S, L]
+    return torch.mean(improvement, dim=-2)[..., 0:1]
+
+
+def _mc_aei_fn(
+    sample: Callable, predict: Callable, eta: torch.Tensor, noise_variance: torch.Tensor,
+    x: torch.Tensor,
+) -> torch.Tensor:
+    """Monte-Carlo augmented EI: MC EI times the noise augmentation factor."""
+    ei = _mc_ei_fn(sample, eta, x)
+    _, var = predict(x[..., 0, :])
+    augmentation = 1.0 - torch.sqrt(noise_variance) / torch.sqrt(noise_variance + var)
+    return ei * augmentation[..., 0:1]
+
+
+def _batch_mc_ei_fn(sample: Callable, eta: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Batch Monte-Carlo (q)EI, ``x: [..., B, D] -> [..., 1]``."""
+    samples = sample(x)  # [..., S, B, L]
+    min_over_batch = torch.min(samples[..., 0], dim=-1).values  # [..., S]
+    improvement = torch.clamp_min(eta - min_over_batch, 0.0)
+    return torch.mean(improvement, dim=-1, keepdim=True)
+
+
+class _MonteCarloBuilder(SingleModelAcquisitionBuilder):
+    def __init__(self, sample_size: int, *, generator: Optional[torch.Generator] = None):
+        if sample_size <= 0:
+            raise ValueError(f"sample_size must be positive, got {sample_size}")
+        self._sample_size = sample_size
+        self._generator = generator
+
+    def _sample_fn(
+        self, model: ProbabilisticModel, dataset: Dataset, joint: bool, **sample_args
+    ) -> Callable[[torch.Tensor], torch.Tensor]:
+        """A sampling callable for ``model`` whose base draws freeze at its first call:
+        the model's own reparametrization sampler for joint samples over a batch, the
+        independent sampler for marginal ones."""
+        from ...models.gp.sampler import IndependentReparametrizationSampler
+
+        if not joint:
+            sampler = IndependentReparametrizationSampler(self._sample_size, model)
+        elif isinstance(model, HasReparamSampler):
+            sampler = model.reparam_sampler(self._sample_size)
+        else:
+            raise ValueError(
+                "Monte-Carlo batch acquisition functions require a model with a "
+                f"reparam_sampler method; received {model!r}"
+            )
+        generator = self._generator or new_generator(dataset.device, 0)
+        return partial(sampler.sample, generator=generator, **sample_args)
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self._sample_size!r})"
+
+
+class MonteCarloExpectedImprovement(_MonteCarloBuilder):
+    """MC EI over marginal reparametrization samples."""
+
+    def prepare_acquisition_function(
+        self, model: ProbabilisticModel, dataset: Optional[Dataset] = None
+    ) -> AcquisitionFunction:
+        dataset = _validate_dataset(dataset, "MonteCarloExpectedImprovement")
+        sample = self._sample_fn(model, dataset, joint=False)
+        return partial(_mc_ei_fn, sample, _min_posterior_mean(model, dataset))
+
+
+class MonteCarloAugmentedExpectedImprovement(_MonteCarloBuilder):
+    """MC augmented EI for noisy problems."""
+
+    def prepare_acquisition_function(
+        self, model: ProbabilisticModel, dataset: Optional[Dataset] = None
+    ) -> AcquisitionFunction:
+        dataset = _validate_dataset(dataset, "MonteCarloAugmentedExpectedImprovement")
+        if not hasattr(model, "get_observation_noise"):
+            raise NotImplementedError(
+                "MonteCarloAugmentedExpectedImprovement requires observation noise"
+            )
+        sample = self._sample_fn(model, dataset, joint=False)
+        return partial(
+            _mc_aei_fn, sample, predictor(model), _min_posterior_mean(model, dataset),
+            model.get_observation_noise(),
+        )
+
+
+class BatchMonteCarloExpectedImprovement(_MonteCarloBuilder):
+    """Reparametrization-trick qEI over joint batch samples. ``jitter`` goes on the
+    batch covariance before its Cholesky (default: the dtype's jitter)."""
+
+    def __init__(
+        self,
+        sample_size: int,
+        *,
+        jitter: Optional[float] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__(sample_size, generator=generator)
+        self._jitter = jitter
+
+    def prepare_acquisition_function(
+        self, model: ProbabilisticModel, dataset: Optional[Dataset] = None
+    ) -> AcquisitionFunction:
+        dataset = _validate_dataset(dataset, "BatchMonteCarloExpectedImprovement")
+        sample = self._sample_fn(model, dataset, joint=True, jitter=self._jitter)
+        return partial(_batch_mc_ei_fn, sample, _min_posterior_mean(model, dataset))
+
+
+def _analytic_qei_fn(
+    predict_joint: Callable, eta: torch.Tensor, qmc_points: torch.Tensor, x: torch.Tensor
+) -> torch.Tensor:
+    """Analytic batch EI by the Chevalier-Ginsbourger decomposition with Genz MVN CDFs.
+
+    ``qEI = sum_k E[(eta - Y_k) 1{Y_k <= eta, Y_k = min Y}]``; each term is an affine
+    transform of the joint posterior evaluated through Q- and (Q-1)-dimensional normal
+    CDFs. ``x: [..., B, D] -> [..., 1]``.
+    """
+    mean, cov = predict_joint(x)  # [..., B, L], [..., L, B, B]
+    m = mean[..., 0]  # [..., B]
+    S = cov[..., 0, :, :]  # [..., B, B]
+    Q = m.shape[-1]
+    dtype, device = m.dtype, m.device
+    if qmc_points.shape[-1] < max(Q - 1, 1):
+        # the QMC set is sized for moderate batches; a larger batch gets its own
+        qmc_points = make_mvn_cdf(qmc_points.shape[0], Q, dtype=dtype, device=device)
+    eye = torch.eye(Q, dtype=dtype, device=device)
+    total = torch.zeros(m.shape[:-1], dtype=dtype, device=device)
+    for k in range(Q):
+        # A: rows j != k give Y_k - Y_j; row k gives Y_k
+        A = -eye.clone()
+        A[:, k] += 1.0
+        A[k, k] = 1.0
+        mk = torch.einsum("ij,...j->...i", A, m)
+        Sk = torch.einsum("ij,...jl,ml->...im", A, S, A) + 1e-10 * eye
+        bk = (eye[k] * eta).expand(mk.shape)  # zeros except eta at k
+        term = (eta - mk[..., k]) * mvn_cdf(bk, mk, Sk, qmc_points)
+        # second-order terms: sum_i Sk[k, i] * phi_1(b_i) * Phi_{Q-1}(conditional)
+        for i in range(Q):
+            Sii = torch.clamp_min(Sk[..., i, i], 1e-24)
+            std_i = torch.sqrt(Sii)
+            z_i = (bk[..., i] - mk[..., i]) / std_i
+            phi_i = torch.exp(-0.5 * z_i**2) / (std_i * math.sqrt(2.0 * math.pi))
+            if Q == 1:
+                cond_cdf = torch.ones_like(total)
+            else:
+                rest = [j for j in range(Q) if j != i]
+                S_ri = Sk[..., rest, i]  # [..., Q-1]
+                S_rr = Sk[..., rest, :][..., :, rest]
+                mu_cond = mk[..., rest] + S_ri * ((bk[..., i] - mk[..., i]) / Sii)[..., None]
+                S_cond = S_rr - S_ri[..., :, None] * S_ri[..., None, :] / Sii[..., None, None]
+                S_cond = S_cond + 1e-10 * eye[: Q - 1, : Q - 1]
+                cond_cdf = mvn_cdf(
+                    bk[..., rest], mu_cond, S_cond, qmc_points[:, : max(Q - 2, 1)]
+                )
+            term = term + Sk[..., k, i] * phi_i * cond_cdf
+        total = total + term
+    return torch.clamp_min(total, 0.0)[..., None]
+
+
+class BatchExpectedImprovement(SingleModelAcquisitionBuilder):
+    """Analytic (accurate but expensive) batch expected improvement."""
+
+    def __init__(self, sample_size: int = 128):
+        if sample_size <= 0:
+            raise ValueError(f"sample_size must be positive, got {sample_size}")
+        self._sample_size = sample_size
+
+    def prepare_acquisition_function(
+        self, model: ProbabilisticModel, dataset: Optional[Dataset] = None
+    ) -> AcquisitionFunction:
+        dataset = _validate_dataset(dataset, "BatchExpectedImprovement")
+        eta = _min_posterior_mean(model, dataset)
+        # QMC points for the largest CDF dimension expected; each call slices what its
+        # batch size needs
+        qmc = make_mvn_cdf(self._sample_size, dimension=16, dtype=eta.dtype, device=eta.device)
+        return partial(_analytic_qei_fn, joint_predictor(model), eta, qmc)
+
+    def __repr__(self) -> str:
+        return f"BatchExpectedImprovement({self._sample_size!r})"

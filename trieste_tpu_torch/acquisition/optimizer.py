@@ -8,14 +8,14 @@ up to ``num_recovery_runs`` times before :class:`FailedOptimizationError`.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
-import numpy as np
 import torch
 
 from ..logging import deferred_scalar, scalar
 from ..ops.lbfgs import minimize_lbfgs
 from ..space import Box, SearchSpace
+from ..utils.misc import generator_for
 from .interface import AcquisitionFunction
 
 NUM_SAMPLES_MIN = 5000
@@ -31,7 +31,10 @@ MAX_ITERS = 60
 """Iterations of each L-BFGS run."""
 
 AcquisitionOptimizer = Callable[..., torch.Tensor]
-"""Maximizes an acquisition function over a space, returning ``[1, D]``."""
+"""Maximizes an acquisition function (or a ``(function, V)`` vectorized pair) over a
+space, returning ``[V, D]``."""
+
+Vectorizable = Union[AcquisitionFunction, Tuple[AcquisitionFunction, int]]
 
 
 class FailedOptimizationError(Exception):
@@ -39,12 +42,20 @@ class FailedOptimizationError(Exception):
 
 
 def automatic_optimizer_selector(
-    space: SearchSpace, f: AcquisitionFunction, generator: Optional[torch.Generator] = None
+    space: SearchSpace, f: Vectorizable, generator: Optional[torch.Generator] = None
 ) -> torch.Tensor:
     """The default optimizer for the space: the continuous optimizer for a :class:`Box`."""
     if not isinstance(space, Box):
         raise NotImplementedError(f"no optimizer is ported for {type(space).__name__}")
     return generate_continuous_optimizer()(space, f, generator=generator)
+
+
+def _as_vectorized(f: Vectorizable) -> Tuple[Callable[[torch.Tensor], torch.Tensor], int]:
+    """Normalize to a vectorized function ``[..., V, D] -> [..., V]`` and V."""
+    if isinstance(f, tuple):
+        fn, V = f
+        return (lambda x: fn(x).reshape(x.shape[:-1])), V
+    return (lambda x: f(x).reshape(x.shape[:-2] + (1,))), 1
 
 
 def _optimize_continuous_core(
@@ -111,22 +122,20 @@ def generate_continuous_optimizer(
     time."""
 
     def optimize_continuous(
-        space: Box, f: AcquisitionFunction, generator: Optional[torch.Generator] = None
+        space: Box, f: Vectorizable, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
-        if generator is None:
-            generator = torch.Generator(device=space.device).manual_seed(
-                int(np.random.randint(2**31))
-            )
+        generator = generator_for(generator, space.device)
+        acq, V = _as_vectorized(f)
         D = space.dimension
         N = num_initial_samples or max(NUM_SAMPLES_MIN, NUM_SAMPLES_DIM * D)
         R = min(num_optimization_runs or NUM_RUNS_DIM * D, N)
-        lower, upper = space.lower[None], space.upper[None]
+        lower, upper = space.lower.expand(V, D), space.upper.expand(V, D)
 
-        def acq(x: torch.Tensor) -> torch.Tensor:  # [..., 1, D] -> [..., 1]
-            return f(x).reshape(x.shape[:-2] + (1,))
+        def make_seeds() -> torch.Tensor:  # every slice starts from the same pool
+            return space.sample(generator, N)[:, None, :].expand(N, V, D)
 
         points, values, improvement = _optimize_continuous_core(
-            acq, space.sample(generator, N)[:, None, :], lower, upper, R, MAX_ITERS
+            acq, make_seeds(), lower, upper, R, MAX_ITERS
         )
         scalar("spo_af_evaluations", N + R * MAX_ITERS)
         deferred_scalar("spo_improvement_on_initial_samples", lambda: float(improvement.sum()))
@@ -141,7 +150,7 @@ def generate_continuous_optimizer(
                 )
             recoveries += 1
             new_points, new_values, _ = _optimize_continuous_core(
-                acq, space.sample(generator, N)[:, None, :], lower, upper, R, MAX_ITERS
+                acq, make_seeds(), lower, upper, R, MAX_ITERS
             )
             replace = ~torch.isfinite(values) & torch.isfinite(new_values)
             points = torch.where(replace[:, None], new_points, points)
@@ -151,3 +160,64 @@ def generate_continuous_optimizer(
         return points
 
     return optimize_continuous
+
+
+def batchify_joint(
+    batch_size_one_optimizer: AcquisitionOptimizer, batch_size: int
+) -> AcquisitionOptimizer:
+    """Lift a size-1 optimizer to optimize a joint batch, by searching ``space ** B`` and
+    reshaping."""
+    if batch_size <= 0:
+        raise ValueError(f"batch_size must be positive, got {batch_size}")
+
+    def optimizer(
+        space: SearchSpace, f: Vectorizable, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        if isinstance(f, tuple):
+            raise ValueError("batchify_joint cannot be applied to vectorized functions")
+        D = space.dimension
+
+        def joint_fn(x: torch.Tensor) -> torch.Tensor:  # [..., 1, B*D]
+            return f(x.reshape(x.shape[:-2] + (batch_size, D)))
+
+        points = batch_size_one_optimizer(space**batch_size, joint_fn, generator=generator)
+        return points.reshape(batch_size, D)
+
+    return optimizer
+
+
+def batchify_vectorize(
+    batch_size_one_optimizer: AcquisitionOptimizer, batch_size: int
+) -> AcquisitionOptimizer:
+    """Lift a size-1 optimizer to optimize ``batch_size`` vectorized slices at once."""
+    if batch_size <= 0:
+        raise ValueError(f"batch_size must be positive, got {batch_size}")
+
+    def optimizer(
+        space: SearchSpace, f: Vectorizable, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        if isinstance(f, tuple):
+            raise ValueError(
+                "batchify_vectorize cannot be applied to already-vectorized functions"
+            )
+        return batch_size_one_optimizer(space, (f, batch_size), generator=generator)
+
+    return optimizer
+
+
+def generate_random_search_optimizer(num_samples: int = NUM_SAMPLES_MIN) -> AcquisitionOptimizer:
+    """Pure random-search maximization."""
+    if num_samples <= 0:
+        raise ValueError(f"num_samples must be positive, got {num_samples}")
+
+    def optimizer(
+        space: SearchSpace, f: Vectorizable, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        acq, V = _as_vectorized(f)
+        flat = space.sample(generator_for(generator, space.device), num_samples)
+        seeds = flat[:, None, :].expand(num_samples, V, flat.shape[-1])
+        with torch.no_grad():
+            best = torch.argmax(acq(seeds), dim=0)  # [V]
+        return seeds[best, torch.arange(V, device=seeds.device)]
+
+    return optimizer

@@ -1,56 +1,115 @@
 """The closed-loop Bayesian optimizer (counterpart of :mod:`trieste_tpu.bayesian_optimizer`).
 
-Per step: early-stop check → record the state → ``rule.acquire`` → observer → dataset
-append → model update and training → summaries. Any exception ends the run as an
-``Err`` result that carries the history so far.
+Per step: early-stop check → record the state → ``rule.acquire`` (a rule with state
+returns a function of it) → observer → dataset append → ``rule.filter_datasets`` → model
+update and training → summaries. Any exception ends the run as an ``Err`` result that
+carries the history so far. Records and results are saved with ``torch.save`` and loaded
+with ``torch.load``; load only files that this package wrote.
 """
 from __future__ import annotations
 
 import copy
 import traceback
 from dataclasses import dataclass
-from typing import Callable, Mapping, Optional, Sequence, Tuple, Union
+from pathlib import Path
+from typing import Any, Callable, Mapping, Optional, Sequence, Tuple, Union
 
-import numpy as np
 import torch
 
 from .data import Dataset
-from .logging import flush_deferred_summaries, get_tensorboard_writer, scalar, set_step_number
+from .logging import (
+    deferred_scalar,
+    flush_deferred_summaries,
+    get_tensorboard_writer,
+    scalar,
+    set_step_number,
+)
 from .models.interfaces import ProbabilisticModel, TrainableProbabilisticModel
 from .observer import OBJECTIVE, Observer
 from .space import SearchSpace
 from .types import Tag
-from .utils.misc import Err, LocalizedTag, Ok, Result, Timer
+from .utils.misc import Err, LocalizedTag, Ok, Result, Timer, ignoring_local_tags, new_generator
 
-EarlyStopCallback = Callable[[Mapping[Tag, Dataset], Mapping[Tag, ProbabilisticModel]], bool]
+EarlyStopCallback = Callable[
+    [Mapping[Tag, Dataset], Mapping[Tag, ProbabilisticModel], Optional[Any]], bool
+]
+
+
+def _single(mapping: Mapping[Tag, Any], what: str) -> Any:
+    mapping = ignoring_local_tags(mapping)
+    if len(mapping) == 1:
+        return next(iter(mapping.values()))
+    raise ValueError(f"expected a single {what}, found {len(mapping)}")
 
 
 @dataclass(frozen=True)
 class Record:
-    """The data and models at a BO step."""
+    """The data, models and acquisition state at a BO step."""
 
     datasets: Mapping[Tag, Dataset]
     models: Mapping[Tag, ProbabilisticModel]
+    acquisition_state: Optional[Any] = None
 
     @property
     def dataset(self) -> Dataset:
-        if len(self.datasets) == 1:
-            return next(iter(self.datasets.values()))
-        raise ValueError(f"expected a single dataset, found {len(self.datasets)}")
+        """The single dataset, if there is exactly one (ignoring local tags)."""
+        return _single(self.datasets, "dataset")
 
     @property
     def model(self) -> ProbabilisticModel:
-        if len(self.models) == 1:
-            return next(iter(self.models.values()))
-        raise ValueError(f"expected a single model, found {len(self.models)}")
+        return _single(self.models, "model")
+
+    def save(self, path: Union[str, Path]) -> "FrozenRecord":
+        """Write this record to ``path``."""
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(self, path)
+        return FrozenRecord(Path(path))
+
+
+@dataclass(frozen=True)
+class FrozenRecord:
+    """A record on disk, loaded each time it is read."""
+
+    path: Path
+
+    def load(self) -> Record:
+        return torch.load(self.path, weights_only=False)
+
+    @property
+    def datasets(self) -> Mapping[Tag, Dataset]:
+        return self.load().datasets
+
+    @property
+    def models(self) -> Mapping[Tag, ProbabilisticModel]:
+        return self.load().models
+
+    @property
+    def acquisition_state(self) -> Optional[Any]:
+        return self.load().acquisition_state
+
+    @property
+    def dataset(self) -> Dataset:
+        return self.load().dataset
+
+    @property
+    def model(self) -> ProbabilisticModel:
+        return self.load().model
 
 
 class OptimizationResult:
     """The final :class:`Record` (or the error that ended the run) and the step history."""
 
-    def __init__(self, final_result: Result[Record], history: Sequence[Record]):
+    STEP_GLOB = "step.*.pickle"
+    RESULTS_FILENAME = "results.pickle"
+
+    def __init__(
+        self, final_result: Result[Record], history: Sequence[Union[Record, FrozenRecord]]
+    ):
         self.final_result = final_result
         self.history = list(history)
+
+    def astuple(self) -> Tuple[Result[Record], Sequence[Union[Record, FrozenRecord]]]:
+        return self.final_result, self.history
 
     @property
     def is_ok(self) -> bool:
@@ -60,8 +119,14 @@ class OptimizationResult:
     def is_err(self) -> bool:
         return self.final_result.is_err
 
+    def try_get_final_datasets(self) -> Mapping[Tag, Dataset]:
+        return self.final_result.unwrap().datasets
+
     def try_get_final_dataset(self) -> Dataset:
         return self.final_result.unwrap().dataset
+
+    def try_get_final_models(self) -> Mapping[Tag, ProbabilisticModel]:
+        return self.final_result.unwrap().models
 
     def try_get_final_model(self) -> ProbabilisticModel:
         return self.final_result.unwrap().model
@@ -74,6 +139,35 @@ class OptimizationResult:
         qp, obs = dataset.astuple()
         idx = torch.argmin(obs[:, 0])
         return qp[idx], obs[idx], idx
+
+    @staticmethod
+    def step_filename(step: int, num_steps: int) -> str:
+        return f"step.{step:0{len(str(num_steps - 1))}d}.pickle"
+
+    def save_result(self, path: Union[str, Path]) -> None:
+        """Write the final result only."""
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(self.final_result, path)
+
+    def save(self, base_path: Union[str, Path]) -> None:
+        """Write the final result and every in-memory record of the history to a
+        directory."""
+        base = Path(base_path)
+        self.save_result(base / self.RESULTS_FILENAME)
+        for i, record in enumerate(self.history):
+            if not isinstance(record, FrozenRecord):
+                record.save(base / self.step_filename(i, len(self.history)))
+
+    @classmethod
+    def from_path(cls, base_path: Union[str, Path]) -> "OptimizationResult":
+        """Load a result that :meth:`save` wrote."""
+        base = Path(base_path)
+        try:
+            final_result = torch.load(base / cls.RESULTS_FILENAME, weights_only=False)
+        except FileNotFoundError as e:
+            final_result = Err(e)
+        history = [FrozenRecord(p) for p in sorted(base.glob(cls.STEP_GLOB))]
+        return cls(final_result, history)
 
 
 class BayesianOptimizer:
@@ -92,13 +186,20 @@ class BayesianOptimizer:
         datasets: Union[Mapping[Tag, Dataset], Dataset],
         models: Union[Mapping[Tag, TrainableProbabilisticModel], TrainableProbabilisticModel],
         acquisition_rule: Optional[object] = None,
+        acquisition_state: Optional[Any] = None,
         *,
         track_state: bool = True,
+        track_path: Optional[Union[str, Path]] = None,
+        fit_model: bool = True,
+        fit_initial_model: bool = True,
         early_stop_callback: Optional[EarlyStopCallback] = None,
+        start_step: int = 0,
         generator: Optional[torch.Generator] = None,
     ) -> OptimizationResult:
-        """Run ``num_steps`` steps of the loop. ``generator`` (default: seeded from numpy's
-        global generator, on the data's device) drives the acquisition's randomness."""
+        """Run the loop up to step ``num_steps``, from ``start_step``. ``generator``
+        (default: seeded from numpy's global generator, on the data's device) drives the
+        acquisition's randomness. With ``track_path`` the history is written there and
+        kept as :class:`FrozenRecord`."""
         if isinstance(datasets, Dataset):
             datasets = {OBJECTIVE: datasets}
             models = {OBJECTIVE: models}  # type: ignore[dict-item]
@@ -125,30 +226,59 @@ class BayesianOptimizer:
 
             acquisition_rule = EfficientGlobalOptimization()
         if generator is None:
-            device = next(iter(datasets.values())).device
-            generator = torch.Generator(device=device).manual_seed(int(np.random.randint(2**31)))
+            generator = new_generator(next(iter(datasets.values())).device)
 
-        history: list[Record] = []
-        step = 0
+        def filtered(state):
+            """The rule's view of the datasets, which may depend on (and move) its state."""
+            result = acquisition_rule.filter_datasets(models, datasets)
+            if callable(result):
+                state, result = result(state)
+            return state, dict(result)
+
+        def fit(filtered_datasets) -> None:
+            for tag, model in models.items():
+                _, tag_data = _match_tag(filtered_datasets, tag)
+                model.update(tag_data)
+                optimize_model_and_save_result(model, tag_data)
+
+        history: list = []
+        step = start_step
         try:
-            with Timer() as initial_fit_timer:
-                for tag, model in models.items():
-                    model.update(datasets[tag])
-                    model.optimize(datasets[tag])
-            scalar("wallclock/model_fitting", initial_fit_timer.time)
+            acquisition_state, filtered_datasets = filtered(acquisition_state)
+            if fit_model and fit_initial_model and start_step == 0:
+                with Timer() as initial_fit_timer:
+                    fit(filtered_datasets)
+                scalar("wallclock/model_fitting", initial_fit_timer.time)
 
-            for step in range(1, num_steps + 1):
+            for step in range(start_step + 1, num_steps + 1):
                 set_step_number(step)
-                if early_stop_callback and early_stop_callback(datasets, models):
+                if early_stop_callback and early_stop_callback(
+                    datasets, models, acquisition_state
+                ):
                     break
                 if track_state:
-                    history.append(Record(copy.deepcopy(datasets), copy.deepcopy(models)))
+                    record = Record(
+                        copy.deepcopy(datasets), copy.deepcopy(models),
+                        copy.deepcopy(acquisition_state),
+                    )
+                    if track_path is None:
+                        history.append(record)
+                    else:
+                        filename = OptimizationResult.step_filename(step, num_steps)
+                        history.append(record.save(Path(track_path) / filename))
 
                 with Timer() as step_timer:
                     with Timer() as acquire_timer:
-                        query_points = acquisition_rule.acquire(
-                            self._search_space, models, datasets=datasets, generator=generator
+                        points_or_stateful = acquisition_rule.acquire(
+                            self._search_space, models, datasets=filtered_datasets,
+                            generator=generator,
                         )
+                        if callable(points_or_stateful):
+                            acquisition_state, query_points = points_or_stateful(
+                                acquisition_state
+                            )
+                        else:
+                            query_points = points_or_stateful
                     with Timer() as observation_timer:
                         observer_output = self._observer(query_points)
                         tagged_output = (
@@ -159,10 +289,10 @@ class BayesianOptimizer:
                         for tag in datasets:
                             if tag in tagged_output:
                                 datasets[tag] = datasets[tag] + tagged_output[tag]
+                    acquisition_state, filtered_datasets = filtered(acquisition_state)
                     with Timer() as fit_timer:
-                        for tag, model in models.items():
-                            model.update(datasets[tag])
-                            model.optimize(datasets[tag])
+                        if fit_model:
+                            fit(filtered_datasets)
 
                 if get_tensorboard_writer() is not None:
                     scalar("wallclock/step", step_timer.time)
@@ -176,4 +306,41 @@ class BayesianOptimizer:
             print(f"Optimization failed at step {step}, encountered error: {error}")
             return OptimizationResult(Err(error), history)
 
-        return OptimizationResult(Ok(Record(datasets, models)), history)
+        return OptimizationResult(Ok(Record(datasets, models, acquisition_state)), history)
+
+    def continue_optimization(
+        self, num_steps: int, previous_result: OptimizationResult, **kwargs: Any
+    ) -> OptimizationResult:
+        """Resume from a previous result's final record or, if it failed, from the last
+        entry of its history; ``kwargs`` go to :meth:`optimize`."""
+        if previous_result.is_ok:
+            record = previous_result.final_result.unwrap()
+            start_step = len(previous_result.history)
+        elif previous_result.history:
+            last = previous_result.history[-1]
+            record = last.load() if isinstance(last, FrozenRecord) else last
+            start_step = len(previous_result.history) - 1
+        else:
+            raise ValueError("previous_result has neither a final result nor history")
+        result = self.optimize(
+            num_steps, dict(record.datasets), dict(record.models),
+            acquisition_state=record.acquisition_state, start_step=start_step, **kwargs,
+        )
+        result.history = list(previous_result.history[:start_step]) + list(result.history)
+        return result
+
+
+def _match_tag(datasets: Mapping[Tag, Dataset], tag: Tag) -> Tuple[Tag, Dataset]:
+    """The data for a tag, falling back from a local tag to its global one."""
+    for candidate in (tag, LocalizedTag.from_tag(tag).global_tag):
+        if candidate in datasets:
+            return candidate, datasets[candidate]
+    raise ValueError(f"no dataset found for tag {tag!r}")
+
+
+def optimize_model_and_save_result(model: TrainableProbabilisticModel, dataset: Dataset) -> Any:
+    """Train a model and queue its final loss as a summary."""
+    result = model.optimize(dataset)
+    if hasattr(result, "loss"):
+        deferred_scalar("model.training_loss", lambda: float(result.loss))
+    return result

@@ -10,9 +10,11 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from .acquisition.rule import AsynchronousRuleState
 from .data import Dataset
-from .models.gp.posterior import GPRParams
+from .models.gp.posterior import GPRCache, GPRParams
 from .models.gp.priors import GPPriors
+from .models.gp.sampler import DecoupledTrajectory, FourierFeatures, RFFTrajectory
 from .ops.kernels import stationary
 
 Device = Union[str, torch.device]
@@ -68,3 +70,48 @@ def priors_from_numpy(
         var_loc=_tensor(var_loc, device, dtype),
         scale=_tensor(scale, device, dtype),
     )
+
+
+def fourier_features_from_numpy(
+    W, b, variance, *, device: Device = "cuda", dtype: Optional[torch.dtype] = None
+) -> FourierFeatures:
+    """:class:`FourierFeatures` from the leaves of the JAX package's ``FourierFeatures``."""
+    return FourierFeatures(
+        W=_tensor(W, device, dtype), b=_tensor(b, device, dtype),
+        variance=_tensor(variance, device, dtype),
+    )
+
+
+def rff_trajectory_from_numpy(
+    mean_constant, W, b, variance, theta, *, device: Device = "cuda",
+    dtype: Optional[torch.dtype] = None,
+) -> RFFTrajectory:
+    """:class:`RFFTrajectory` from the leaves of the JAX package's ``RFFTrajectory``
+    (its ``features`` given as ``W``, ``b`` and ``variance``)."""
+    return RFFTrajectory(
+        mean_constant=_tensor(mean_constant, device, dtype),
+        features=fourier_features_from_numpy(W, b, variance, device=device, dtype=dtype),
+        theta=_tensor(theta, device, dtype),
+    )
+
+
+def decoupled_trajectory_from_numpy(
+    params: GPRParams, cache: GPRCache, W, b, variance, w, v, *, device: Device = "cuda",
+    dtype: Optional[torch.dtype] = None,
+) -> DecoupledTrajectory:
+    """:class:`DecoupledTrajectory` over the port's ``params`` and ``cache`` from the
+    leaves of the JAX package's ``DecoupledTrajectory``."""
+    return DecoupledTrajectory(
+        params=params, cache=cache,
+        features=fourier_features_from_numpy(W, b, variance, device=device, dtype=dtype),
+        w=_tensor(w, device, dtype), v=_tensor(v, device, dtype),
+    )
+
+
+def asynchronous_rule_state_from_numpy(
+    pending_points, *, device: Device = "cuda", dtype: Optional[torch.dtype] = None
+) -> AsynchronousRuleState:
+    """:class:`AsynchronousRuleState` from pending points ``[P, D]`` (``None``: none)."""
+    if pending_points is None:
+        return AsynchronousRuleState(None)
+    return AsynchronousRuleState(_tensor(pending_points, device, dtype))

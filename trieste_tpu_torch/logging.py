@@ -1,9 +1,10 @@
 """Summary logging (the writer-agnostic subset of :mod:`trieste_tpu.logging`).
 
 With no writer set, every call returns at once and evaluates nothing. A writer is any
-object with ``add_scalar(name, value, step)``. ``deferred_scalar`` queues a closure
-whose device read would otherwise stall the hot path; the BO loop flushes the queue once
-per step.
+object with ``add_scalar(name, value, step)`` and, for histograms,
+``add_histogram(name, values, step)``. ``deferred_scalar`` and ``deferred_histogram``
+queue a closure whose device read would otherwise stall the hot path; the BO loop (or
+``tell``) flushes the queue once per step.
 """
 from __future__ import annotations
 
@@ -48,14 +49,22 @@ def scalar(name: str, value: Union[float, Callable[[], float]]) -> None:
 def deferred_scalar(name: str, value: Union[float, Callable[[], float]]) -> None:
     """Queue a scalar for the next :func:`flush_deferred_summaries`, if a writer is set."""
     if _WRITER is not None:
-        _DEFERRED.append((name, value, _STEP))
+        _DEFERRED.append(("add_scalar", name, value, _STEP))
+
+
+def deferred_histogram(name: str, values: Callable[[], Any]) -> None:
+    """Queue a histogram of the array that ``values()`` returns, if a writer that takes
+    histograms is set."""
+    if hasattr(_WRITER, "add_histogram"):
+        _DEFERRED.append(("add_histogram", name, values, _STEP))
 
 
 def flush_deferred_summaries() -> None:
-    """Evaluate and write the queued scalars at their enqueue-time steps."""
+    """Evaluate and write the queued summaries at their enqueue-time steps."""
     global _DEFERRED
     pending, _DEFERRED = _DEFERRED, []
     if _WRITER is None:
         return
-    for name, value, step in pending:
-        _WRITER.add_scalar(name, _evaluate(value), step)
+    for method, name, value, step in pending:
+        evaluated = _evaluate(value) if method == "add_scalar" else value()
+        getattr(_WRITER, method)(name, evaluated, step)

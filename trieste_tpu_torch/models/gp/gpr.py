@@ -3,11 +3,13 @@
 (``GPRParams``, the padded dataset and the ``GPRCache``)."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from ...data import Dataset
+from ...ops.kernels import Stationary
+from ..interfaces import ReparametrizationSampler, TrajectorySampler
 from . import posterior as P
 from .priors import GPPriors
 from .training import GPRTrainingResult, fit_gpr
@@ -24,7 +26,12 @@ def _linvt_ok(params: P.GPRParams) -> bool:
 
 
 class GaussianProcessRegression:
-    """Exact GPR with a Gaussian likelihood and a constant mean function."""
+    """Exact GPR with a Gaussian likelihood and a constant mean function.
+
+    Implements ``TrainableProbabilisticModel``, ``SupportsPredictJoint``,
+    ``SupportsPredictY``, ``SupportsGetKernel`` / ``ObservationNoise`` / ``InternalData`` /
+    ``MeanFunction``, ``SupportsCovarianceBetweenPoints``, ``FastUpdateModel``,
+    ``HasTrajectorySampler`` and ``HasReparamSampler``."""
 
     def __init__(
         self,
@@ -34,6 +41,7 @@ class GaussianProcessRegression:
         num_kernel_samples: int = 10,
         train_noise: bool = True,
         max_optimize_iters: int = 100,
+        num_rff_features: int = 1000,
         optimize_generator: Optional[torch.Generator] = None,
         priors: Optional[GPPriors] = None,
     ):
@@ -42,6 +50,7 @@ class GaussianProcessRegression:
         self._num_kernel_samples = num_kernel_samples
         self._train_noise = train_noise
         self._max_optimize_iters = max_optimize_iters
+        self._num_rff_features = num_rff_features
         self._priors = priors
         if optimize_generator is None:
             optimize_generator = torch.Generator(device=dataset.device).manual_seed(0)
@@ -73,8 +82,79 @@ class GaussianProcessRegression:
     def dataset(self) -> Dataset:
         return self._dataset
 
+    def get_kernel(self) -> Stationary:
+        return self._params.kernel
+
+    def get_observation_noise(self) -> torch.Tensor:
+        return self._params.noise_variance
+
+    def get_internal_data(self) -> Dataset:
+        return self._dataset
+
+    def get_mean_function(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        c = self._params.mean_constant
+        return lambda x: c.expand(x.shape[:-1] + (1,))
+
+    @property
+    def num_rff_features(self) -> int:
+        return self._num_rff_features
+
     def predict(self, query_points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return P.predict_f(self._params, self._cache, query_points)
+
+    def predict_joint(self, query_points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return P.predict_joint(self._params, self._cache, query_points)
+
+    def predict_y(self, query_points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return P.predict_y(self._params, self._cache, query_points)
+
+    def sample(
+        self, generator: Optional[torch.Generator], query_points: torch.Tensor, num_samples: int
+    ) -> torch.Tensor:
+        """Joint posterior samples ``[..., S, B, L]`` at ``[..., B, D]``."""
+        return P.sample_joint(generator, self._params, self._cache, query_points, num_samples)
+
+    def covariance_between_points(
+        self, query_points_1: torch.Tensor, query_points_2: torch.Tensor
+    ) -> torch.Tensor:
+        return P.covariance_between_points(
+            self._params, self._cache, query_points_1, query_points_2
+        )
+
+    # -- fast updates (fantasizing) ---------------------------------------------------
+
+    def conditional_predict_f(
+        self, query_points: torch.Tensor, additional_data: Dataset
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return P.conditional_predict_f(
+            self._params, self._cache, query_points, *additional_data.astuple()
+        )
+
+    def conditional_predict_joint(
+        self, query_points: torch.Tensor, additional_data: Dataset
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return P.conditional_predict_joint(
+            self._params, self._cache, query_points, *additional_data.astuple()
+        )
+
+    def conditional_predict_y(
+        self, query_points: torch.Tensor, additional_data: Dataset
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return P.conditional_predict_y(
+            self._params, self._cache, query_points, *additional_data.astuple()
+        )
+
+    def conditional_predict_f_sample(
+        self,
+        generator: Optional[torch.Generator],
+        query_points: torch.Tensor,
+        additional_data: Dataset,
+        num_samples: int,
+    ) -> torch.Tensor:
+        return P.conditional_predict_f_sample(
+            generator, self._params, self._cache, query_points, *additional_data.astuple(),
+            num_samples,
+        )
 
     def update(self, dataset: Dataset) -> None:
         """Set the data and refresh the posterior cache."""
@@ -102,6 +182,30 @@ class GaussianProcessRegression:
         self._dataset = dataset
         self._cache = self._build_cache()
         return result
+
+    def reparam_sampler(self, num_samples: int) -> ReparametrizationSampler:
+        from .sampler import BatchReparametrizationSampler
+
+        return BatchReparametrizationSampler(num_samples, self)
+
+    def trajectory_sampler(self) -> TrajectorySampler:
+        from .sampler import RandomFourierFeatureTrajectorySampler
+
+        return RandomFourierFeatureTrajectorySampler(self, self._num_rff_features)
+
+    def log(self, dataset: Optional[Dataset] = None) -> None:
+        """Queue the hyperparameters as summaries (read at the loop's per-step flush)."""
+        from ...logging import deferred_scalar, get_tensorboard_writer
+
+        if get_tensorboard_writer() is None:
+            return
+        params = self._params
+        deferred_scalar("kernel.variance", lambda: float(params.kernel.variance))
+        for i in range(params.kernel.lengthscales.shape[0]):
+            deferred_scalar(
+                f"kernel.lengthscale[{i}]", lambda i=i: float(params.kernel.lengthscales[i])
+            )
+        deferred_scalar("likelihood.variance", lambda: float(params.noise_variance))
 
     def __repr__(self) -> str:
         return (

@@ -21,23 +21,31 @@ def masked_gram(K: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return K * outer + eye * (1.0 - m[..., :, None])
 
 
+def nan_cholesky(K: torch.Tensor) -> torch.Tensor:
+    """Cholesky of ``K [..., N, N]`` that gives a lower triangle of NaNs, as JAX's does,
+    where a matrix is not positive definite, instead of raising: one degenerate member
+    of a batch (two equal points in a joint candidate) then loses without stopping the
+    others."""
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where((info != 0)[..., None, None], torch.nan, L).tril()
+
+
 def masked_cholesky(
     K: torch.Tensor, mask: Optional[torch.Tensor] = None, jitter: Optional[float] = None
 ) -> torch.Tensor:
     """Cholesky of ``K + jitter*I`` with padded rows/cols as identity (the jitter goes on
     valid rows only).
 
-    A matrix that is not positive definite gives a lower triangle of NaNs, as JAX's
-    Cholesky does, instead of raising: an L-BFGS restart that wanders there then loses (its loss
-    becomes ``+inf``) without stopping the others."""
+    A matrix that is not positive definite gives NaNs (:func:`nan_cholesky`): an L-BFGS
+    restart that wanders there then loses (its loss becomes ``+inf``) without stopping
+    the others."""
     j = jitter_for(K.dtype) if jitter is None else jitter
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     if mask is None:
         Kj = K + j * eye
     else:
         Kj = masked_gram(K + j * eye * mask.to(K.dtype)[..., :, None], mask)
-    L, info = torch.linalg.cholesky_ex(Kj)
-    return torch.where((info != 0)[..., None, None], torch.nan, L).tril()
+    return nan_cholesky(Kj)
 
 
 def solve_lower(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

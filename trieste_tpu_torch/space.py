@@ -1,6 +1,6 @@
 """Search spaces (counterpart of :mod:`trieste_tpu.space`): the :class:`SearchSpace` ABC
-and an unconstrained :class:`Box`. Constraints, discrete and product spaces are not
-ported yet.
+and an unconstrained :class:`Box` with uniform, Halton and Sobol sampling. Constraints,
+discrete and tagged product spaces are not ported yet.
 
 >>> box = Box([0.0, 0.0], [1.0, 2.0], device="cpu")
 >>> box.dimension, tuple(box.sample(torch.Generator().manual_seed(0), 5).shape)
@@ -33,6 +33,11 @@ class SearchSpace(ABC):
     @abstractmethod
     def dimension(self) -> int:
         """Number of input dimensions."""
+
+    @property
+    @abstractmethod
+    def device(self) -> torch.device:
+        """The device that samples and bounds live on."""
 
     @property
     @abstractmethod
@@ -143,7 +148,29 @@ class Box(SearchSpace):
             (num_samples, self.dimension), generator=generator, dtype=self._dtype,
             device=self._device,
         )
+        return self._scale(u)
+
+    def _scale(self, u: torch.Tensor) -> torch.Tensor:
         return self.lower + u * (self.upper - self.lower)
+
+    def sample_halton(
+        self, generator: Optional[torch.Generator], num_samples: int
+    ) -> torch.Tensor:
+        """Halton sampling on the box's device, randomized by a rotation drawn from
+        ``generator`` (``None``: the deterministic sequence)."""
+        from .ops.qmc import halton_sample
+
+        return self._scale(
+            halton_sample(generator, num_samples, self.dimension, self._dtype, self._device)
+        )
+
+    def sample_sobol(self, num_samples: int, skip: Optional[int] = None) -> torch.Tensor:
+        """Sobol sampling: generated on the host, then placed on the box's device."""
+        from .ops.qmc import sobol_sample
+
+        return self._scale(
+            sobol_sample(num_samples, self.dimension, skip, self._dtype, self._device)
+        )
 
     def __mul__(self, other: SearchSpace) -> SearchSpace:
         if not isinstance(other, Box):

@@ -8,5 +8,8 @@ from .misc import (
     Timer,
     default_float,
     flatten_leading_dims,
+    get_value_for_tag,
+    ignoring_local_tags,
     jitter_for,
+    map_values,
 )

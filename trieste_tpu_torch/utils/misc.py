@@ -1,6 +1,6 @@
 """Miscellaneous core utilities (counterpart of :mod:`trieste_tpu.utils.misc`): the
-``Result`` monad, ``Timer``, ``LocalizedTag``, the dtype policy and
-``flatten_leading_dims``.
+``Result`` monad, ``Timer``, ``LocalizedTag`` and the tag helpers, the dtype policy,
+``flatten_leading_dims`` and the explicit-generator helpers.
 
 >>> Ok(3).unwrap()
 3
@@ -15,13 +15,16 @@ from __future__ import annotations
 import time
 from abc import ABC, abstractmethod
 from dataclasses import dataclass
-from typing import Any, Callable, Generic, NoReturn, Optional, Tuple, TypeVar
+from typing import Any, Callable, Generic, Mapping, NoReturn, Optional, Tuple, TypeVar, Union
 
+import numpy as np
 import torch
 
 from ..types import Tag
 
 T = TypeVar("T")
+U = TypeVar("U")
+K = TypeVar("K")
 
 
 class _Defaults:
@@ -116,6 +119,73 @@ class LocalizedTag:
 
     def __str__(self) -> str:
         return f"{self.global_tag}__{self.local_index}" if self.is_local else str(self.global_tag)
+
+
+def map_values(f: Callable[[T], U], mapping: Mapping[K, T]) -> dict[K, U]:
+    """Apply ``f`` to every value of ``mapping``."""
+    return {k: f(v) for k, v in mapping.items()}
+
+
+def ignoring_local_tags(mapping: Mapping[Tag, T]) -> dict[Tag, T]:
+    """Expose local tags under their global name where no global entry exists."""
+    out = {k: v for k, v in mapping.items() if not LocalizedTag.from_tag(k).is_local}
+    for k, v in mapping.items():
+        ltag = LocalizedTag.from_tag(k)
+        if ltag.is_local and ltag.global_tag not in out:
+            out[ltag.global_tag] = v
+    return out
+
+
+def get_value_for_tag(
+    mapping: Optional[Mapping[Tag, T]], *tags: Tag
+) -> Tuple[Optional[Tag], Optional[T]]:
+    """The first matching ``(tag, value)`` pair, searching ``tags`` in order (default:
+    the ``OBJECTIVE`` tag); ``(None, None)`` if none matches."""
+    from ..observer import OBJECTIVE
+
+    if mapping is None:
+        return None, None
+    for tag in tags or (OBJECTIVE,):
+        if tag in mapping:
+            return tag, mapping[tag]
+    return None, None
+
+
+def new_generator(
+    device: Union[str, torch.device], seed: Optional[int] = None
+) -> torch.Generator:
+    """A generator on ``device``, seeded with ``seed`` or, without one, from numpy's
+    global generator (so ``np.random.seed`` pins a whole run)."""
+    seed = int(np.random.randint(2**31)) if seed is None else seed
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def check_generator(generator: torch.Generator, device: Union[str, torch.device]) -> None:
+    """Raise if ``generator`` does not live on ``device``: randomness is drawn where the
+    data is, never moved across."""
+    if generator.device.type != torch.device(device).type:
+        raise ValueError(
+            f"the generator is on {generator.device}, the data on {device}: pass a "
+            f"torch.Generator(device={str(device)!r})"
+        )
+
+
+def generator_for(
+    generator: Optional[torch.Generator], device: Union[str, torch.device]
+) -> torch.Generator:
+    """``generator`` after a check of its device, or a fresh one on ``device``."""
+    if generator is None:
+        return new_generator(device)
+    check_generator(generator, device)
+    return generator
+
+
+def standard_normal(
+    generator: Optional[torch.Generator], shape: Tuple[int, ...], like: torch.Tensor
+) -> torch.Tensor:
+    """Standard-normal base draws with the dtype and device of ``like``."""
+    generator = generator_for(generator, like.device)
+    return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
 
 
 def flatten_leading_dims(
