@@ -198,7 +198,26 @@ def _rules():
             acq.BatchMonteCarloExpectedImprovement(64), small, num_query_points=2),
         "async-greedy": lambda: acq.AsynchronousGreedy(
             acq.GreedyContinuousThompsonSampling(), small, num_query_points=2),
+        "lp": lambda: acq.EfficientGlobalOptimization(
+            acq.LocalPenalization(_BRANIN_SPACE()), small, num_query_points=2),
+        "fantasizer": lambda: acq.EfficientGlobalOptimization(
+            acq.Fantasizer(), small, num_query_points=2),
+        "gibbon": lambda: acq.EfficientGlobalOptimization(
+            acq.GIBBON(_BRANIN_SPACE()), small, num_query_points=2),
+        "mes": lambda: acq.EfficientGlobalOptimization(
+            acq.MinValueEntropySearch(_BRANIN_SPACE()), small),
+        "monlcb": lambda: acq.EfficientGlobalOptimization(
+            acq.MultipleOptimismNegativeLowerConfidenceBound(_BRANIN_SPACE()), small,
+            num_query_points=2),
+        "ivr": lambda: acq.EfficientGlobalOptimization(
+            acq.IntegratedVarianceReduction(_BRANIN_SPACE().sample_sobol(64)), small),
     }
+
+
+def _BRANIN_SPACE():
+    from trieste_tpu_torch.objectives import ScaledBranin
+
+    return ScaledBranin.search_space
 
 
 @pytest.mark.parametrize("name", sorted(_rules()))
@@ -268,3 +287,54 @@ def test_monte_carlo_ei_seed_scoring_launches_the_kernel(device):
     before = fp.launches
     torch.autograd.grad(acq(few).sum(), few)
     assert fp.launches == before
+
+
+def test_monlcb_pool_through_the_kernel_matches_the_exact_fp64_path(device):
+    """MONLCB's ``[N, V, D]`` seed pool flattens to N·V rows, which pass the kernel's gate
+    though N alone would not; the scores agree with the exact fp64 prediction within the
+    kernel's contract pushed through ``−(mean − beta·std)``."""
+    from trieste_tpu_torch.acquisition import MultipleOptimismNegativeLowerConfidenceBound
+    from trieste_tpu_torch.acquisition.function.function import _monlcb_fn_spread
+
+    space, observer, gen, data, model = _fitted_branin(device)
+    fn = MultipleOptimismNegativeLowerConfidenceBound(space).prepare_acquisition_function(model)
+    N, V = 1024, 3
+    assert N < fp.MIN_POINTS <= N * V
+    pool = space.sample(gen, N)[:, None, :].expand(N, V, 2)
+    before = fp.launches
+    with torch.no_grad():
+        got = fn(pool).double()
+    assert fp.launches == before + 1 and got.shape == (N, V)
+    params = model.params
+    p64 = params.replace(
+        kernel=params.kernel.replace(variance=params.kernel.variance.double(),
+                                     lengthscales=params.kernel.lengthscales.double()),
+        noise_variance=params.noise_variance.double(), mean_constant=params.mean_constant.double())
+    c64 = tpost.build_cache(p64, data.query_points.double(), data.observations.double(), data.mask,
+                            with_linvt=False)
+    predict64 = lambda x: tpost.predict_f_reference(p64, c64, x)  # noqa: E731
+    want = _monlcb_fn_spread(predict64, 2.0, pool.double())
+    mean64, var64 = predict64(pool.double())
+    spread = 0.5 + 0.5 * torch.arange(1, V + 1, dtype=torch.float64, device=device) / (V + 1)
+    betas = 5.0 * 2.0 * torch.special.ndtri(spread)  # as the function takes them, D = 2
+    limit = (MEAN_TOL["atol"] + MEAN_TOL["rtol"] * mean64[..., 0].abs()
+             + betas.abs() * torch.sqrt(VAR_TOL["atol"] + VAR_TOL["rtol"] * var64[..., 0]))
+    assert bool(((got - want).abs() <= limit).all())
+
+
+def test_conditional_marginal_at_full_pool_size_matches_the_joint_form(device):
+    """At 131072 queries the conditioned marginal needs O(B·(C + M)) memory (the
+    ``[B, B]`` block alone would be 68.7 GB in fp32); on its first 4096 rows it equals the
+    diagonal of the joint form."""
+    space, observer, gen, data, model = _fitted_branin(device)
+    q = space.sample(gen, 131072)
+    extra = observer(space.sample(gen, 2))
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    mean, var = model.conditional_predict_f(q, extra)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < 1e9
+    jmean, jcov = model.conditional_predict_joint(q[:4096], extra)
+    torch.testing.assert_close(mean[:4096], jmean, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(var[:4096, 0], torch.diagonal(jcov[0]), rtol=1e-4, atol=1e-5)
+    assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())

@@ -1,12 +1,29 @@
 """Acquisition functions, optimizers and rules (counterpart of :mod:`trieste_tpu.acquisition`)."""
+from .combination import Map, Product, Reducer, Sum
 from .function import (
+    GIBBON,
+    AugmentedExpectedImprovement,
     BatchExpectedImprovement,
     BatchMonteCarloExpectedImprovement,
+    BayesianActiveLearningByDisagreement,
+    ExpectedConstrainedImprovement,
+    ExpectedFeasibility,
     ExpectedImprovement,
+    Fantasizer,
     GreedyContinuousThompsonSampling,
+    IntegratedVarianceReduction,
+    LocalPenalization,
+    MakePositive,
+    MinValueEntropySearch,
     MonteCarloAugmentedExpectedImprovement,
     MonteCarloExpectedImprovement,
+    MultipleOptimismNegativeLowerConfidenceBound,
+    NegativeLowerConfidenceBound,
+    NegativePredictiveMean,
     ParallelContinuousThompsonSampling,
+    PredictiveVariance,
+    ProbabilityOfFeasibility,
+    ProbabilityOfImprovement,
 )
 from .interface import (
     AcquisitionFunction,

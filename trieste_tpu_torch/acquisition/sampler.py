@@ -9,7 +9,7 @@ from typing import Optional
 import torch
 
 from ..models.interfaces import HasTrajectorySampler, ProbabilisticModel
-from ..utils.misc import generator_for
+from ..utils.misc import uniform
 
 
 class ThompsonSampler(ABC):
@@ -89,10 +89,7 @@ class GumbelSampler(ThompsonSampler):
     def sample(self, model, sample_size, at, *, generator=None) -> torch.Tensor:
         _check_sample_size(sample_size)
         mean, var = model.predict(at)  # [N, 1]
-        u = torch.rand(
-            (sample_size, 1), generator=generator_for(generator, at.device), dtype=mean.dtype,
-            device=mean.device,
-        )
+        u = uniform(generator, (sample_size, 1), mean)
         return gumbel_min_value_samples(mean, var, torch.clamp(u, 1e-12, 1.0 - 1e-12))
 
 

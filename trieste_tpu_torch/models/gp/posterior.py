@@ -278,6 +278,18 @@ def cho_solve_batched(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return cho_solve(L, b)
 
 
+def _mean_and_whitened(
+    params: GPRParams, cache: GPRCache, x: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The posterior mean ``[..., N, P]`` at ``x [..., N, D]`` and ``v = L⁻¹ K(X, x)``
+    as ``[..., N, C]``, the factor of the posterior covariance ``K(a, b) − v_aᵀ v_b``."""
+    flat = x.reshape(-1, x.shape[-1])
+    Kxn = _masked_cross_cov(params, cache, flat)  # [N, C]
+    mean = Kxn @ cache.alpha + params.mean_constant
+    v = solve_lower(cache.L, Kxn.T).T
+    return mean.reshape(x.shape[:-1] + (-1,)), v.reshape(x.shape[:-1] + (-1,))
+
+
 def conditional_predict_joint(
     params: GPRParams,
     cache: GPRCache,
@@ -318,9 +330,27 @@ def conditional_predict_f(
     extra_X: torch.Tensor,
     extra_Y: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Marginal version of :func:`conditional_predict_joint`: two ``[..., B, P]``."""
-    mean, cov = conditional_predict_joint(params, cache, query_points, extra_X, extra_Y)
-    return mean, torch.diagonal(cov, dim1=-2, dim2=-1).transpose(-1, -2)
+    """Marginal version of :func:`conditional_predict_joint`: two ``[..., B, P]``.
+
+    The ``[B, B]`` block is never formed, so memory is O(B·(C + M)): the exact marginal
+    at the queries, their posterior covariance with the extra points ``[..., M, B]`` and
+    one triangular solve against the Cholesky factor ``Le`` of the extra points' noisy
+    covariance give ``mean + cov_qe Le⁻ᵀ Le⁻¹ r`` and ``var − |Le⁻¹ cov_eq|²``. Never
+    fused: near an extra point the conditioned variance is below the fused kernel's
+    absolute variance error."""
+    M = extra_X.shape[-2]
+    mean_q, vq = _mean_and_whitened(params, cache, query_points)  # [..., B, P], [..., B, C]
+    var_q = params.kernel.variance - torch.sum(torch.square(vq), dim=-1)  # [..., B]
+    mean_e, ve = _mean_and_whitened(params, cache, extra_X)  # [..., M, P], [..., M, C]
+    cov_ee = gram(params.kernel, extra_X) - ve @ ve.transpose(-1, -2)
+    cov_eq = gram(params.kernel, extra_X, query_points) - ve @ vq.transpose(-1, -2)
+    del vq
+    eye = torch.eye(M, dtype=cov_ee.dtype, device=cov_ee.device)
+    Le = nan_cholesky(cov_ee + (params.noise_variance + jitter_for(cov_ee.dtype)) * eye)
+    A = solve_lower(Le, cov_eq)  # [..., M, B]
+    mean = mean_q + A.transpose(-1, -2) @ solve_lower(Le, extra_Y - mean_e)
+    var = var_q - torch.sum(torch.square(A), dim=-2)
+    return mean, var[..., None].expand(mean.shape)
 
 
 def conditional_predict_y(

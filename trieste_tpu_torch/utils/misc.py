@@ -188,6 +188,14 @@ def standard_normal(
     return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
 
 
+def uniform(
+    generator: Optional[torch.Generator], shape: Tuple[int, ...], like: torch.Tensor
+) -> torch.Tensor:
+    """Uniform ``[0, 1)`` base draws with the dtype and device of ``like``."""
+    generator = generator_for(generator, like.device)
+    return torch.rand(shape, generator=generator, dtype=like.dtype, device=like.device)
+
+
 def flatten_leading_dims(
     x: torch.Tensor, output_dims: int = 2
 ) -> Tuple[torch.Tensor, Callable[[torch.Tensor], torch.Tensor]]:
