@@ -410,11 +410,16 @@ def test_rules_with_local_datasets_are_refused_for_now(setup):
         def initialize_subspaces(self, search_space):
             pass
 
+    # rules with local datasets are no longer refused: a restored state's local_data_ixs
+    # give each region its rows of the global dataset
     state = AskTellOptimizerState(
         Record({OBJECTIVE: data}, {OBJECTIVE: model}), local_data_ixs=(_t([0]), _t([1]))
     )
-    with pytest.raises(NotImplementedError, match="trust regions"):
-        AskTellOptimizer.from_state(state, space, TwoRegionRule([[0.0, 0.0]]))
+    restored = AskTellOptimizer.from_state(state, space, TwoRegionRule([[0.0, 0.0]]))
+    for i in range(2):
+        local = restored.datasets[LocalizedTag(OBJECTIVE, i)]
+        torch.testing.assert_close(local.trimmed_query_points, data.trimmed_query_points[i : i + 1])
+    assert restored.dataset is data
 
 
 def test_dataset_len(setup):

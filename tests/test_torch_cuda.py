@@ -338,3 +338,98 @@ def test_conditional_marginal_at_full_pool_size_matches_the_joint_form(device):
     torch.testing.assert_close(mean[:4096], jmean, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(var[:4096, 0], torch.diagonal(jcov[0]), rtol=1e-4, atol=1e-5)
     assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())
+
+
+# -- trust regions on the card ------------------------------------------------------------
+
+
+def _small_trust_region_rules():
+    from trieste_tpu_torch import acquisition as acq
+
+    small = acq.generate_continuous_optimizer(num_initial_samples=4096, num_optimization_runs=4)
+    space = _BRANIN_SPACE()
+    return {
+        "trego": lambda: acq.BatchTrustRegionBox([acq.TREGOBox(space)],
+                                                 acq.EfficientGlobalOptimization(optimizer=small)),
+        "turbo": lambda: acq.BatchTrustRegionBox([acq.TURBOBox(space)],
+                                                 [acq.EfficientGlobalOptimization(optimizer=small)]),
+        "batch-tr": lambda: acq.BatchTrustRegionBox(3, acq.EfficientGlobalOptimization(
+            acq.MultipleOptimismNegativeLowerConfidenceBound(space), small, num_query_points=3)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_small_trust_region_rules()))
+def test_trust_region_fleet_state_on_the_card_copies_and_saves(device, name, tmp_path):
+    """A fleet's regions keep their tensors and generators on the card; the state survives
+    a deep copy, ``Record.save`` and ``OptimizationResult.from_path``, and a restored
+    generator goes on drawing as the original does."""
+    import copy
+
+    from trieste_tpu_torch import AskTellOptimizer, OptimizationResult, Record
+    from trieste_tpu_torch.acquisition import BatchTrustRegionState
+
+    space, observer, gen, data, model = _fitted_branin(device)
+    opt = AskTellOptimizer(space, data, model, _small_trust_region_rules()[name](), generator=gen,
+                           fit_model=False)
+    points = opt.ask()
+    assert points.is_cuda and points.ndim == 3 and bool(space.contains(points.reshape(-1, 2)).all())
+    opt.tell(observer(points.reshape(-1, 2)))
+    state = opt.acquisition_state
+    assert isinstance(state, BatchTrustRegionState)
+    for region in state.subspaces:
+        assert region.lower.is_cuda and region.location.is_cuda
+        assert getattr(region, "_generator", gen).device.type == "cuda"
+    copied = copy.deepcopy(state)
+    result = OptimizationResult(None, [Record(opt.datasets, opt.models, state)])
+    result.save(tmp_path)
+    loaded = OptimizationResult.from_path(tmp_path).history[0].acquisition_state
+    for original, again in zip(state.subspaces, loaded.subspaces):
+        torch.testing.assert_close(again.lower, original.lower, rtol=0, atol=0)
+        torch.testing.assert_close(again.location, original.location, rtol=0, atol=0)
+        assert again.location.is_cuda
+    region, twin = state.subspaces[0], copied.subspaces[0]
+    if hasattr(region, "_generator"):
+        assert torch.equal(torch.rand(4, generator=region._generator, device=device),
+                           torch.rand(4, generator=twin._generator, device=device))
+    restored = AskTellOptimizer.from_state(opt.to_state(copy=True), space,
+                                           _small_trust_region_rules()[name](), generator=gen)
+    assert restored.ask().is_cuda
+
+
+def test_mask_to_region_on_the_card_matches_the_cpu(device):
+    from trieste_tpu_torch import Dataset
+    from trieste_tpu_torch.acquisition.trust_region import _mask_to_region
+
+    g = torch.Generator(device=device).manual_seed(3)
+    X = torch.rand(1000, 6, generator=g, device=device)
+    ds = Dataset.from_arrays(X, X.sum(-1, keepdim=True), capacity=1024)
+    inside = (X[:, 0] > 0.3) & (X[:, 1] < 0.8)
+    inside = torch.cat([inside, torch.zeros(24, dtype=torch.bool, device=device)])
+    got = _mask_to_region(ds, inside)
+    cpu = Dataset(ds.query_points.cpu(), ds.observations.cpu(), ds.num_points)
+    want = _mask_to_region(cpu, inside.cpu())
+    assert got.capacity == 1024 and got.num_points == want.num_points == int(inside.sum())
+    torch.testing.assert_close(got.query_points.cpu(), want.query_points, rtol=0, atol=0)
+    torch.testing.assert_close(got.observations.cpu(), want.observations, rtol=0, atol=0)
+
+
+def test_kernel_on_a_trust_region_fleet_seed_pool(device):
+    """The seed pool of a ten-region fleet, ``[131072, 10, 6]`` (each region's rows in its
+    own box), flattened to 1,310,720 rows: the kernel against its fp64 plain version, in
+    chunks of the plain version."""
+    from trieste_tpu_torch.space import Box, TaggedMultiSearchSpace
+
+    params, cache, g = _state("matern52", 1024, 1, device, D=6)
+    lower = torch.rand(10, 6, generator=g, device=device) * 0.5
+    fleet = TaggedMultiSearchSpace([Box(lo, lo + 0.3, device=device) for lo in lower])
+    pool = fleet.sample(g, 131072)
+    assert pool.shape == (131072, 10, 6) and bool(fleet.contains(pool).all())
+    args = fp.operands(params, cache, pool.reshape(-1, 6))
+    mean, var = fp.launch(*args)
+    torch.cuda.synchronize()
+    assert mean.shape[0] == 1310720
+    for rows in torch.split(torch.arange(1310720, device=device), 131072):
+        want_mean, want_var = fp.fused_predict_reference(
+            args[0], args[1][rows].double(), *(t.double() for t in args[2:]))
+        torch.testing.assert_close(mean[rows].double(), want_mean, **MEAN_TOL)
+        torch.testing.assert_close(var[rows].double(), want_var, **VAR_TOL)

@@ -5,6 +5,18 @@ prediction kernel serves this on the card), starts ``10·D`` projected L-BFGS ru
 best seeds, runs them in lockstep, and returns the best of the runs and the seeds, so it
 never does worse than random search. If no finite value is found, fresh seeds are tried
 up to ``num_recovery_runs`` times before :class:`FailedOptimizationError`.
+
+Over a :class:`TaggedMultiSearchSpace` (a trust-region fleet) each slice draws its seeds
+and keeps its bounds in its own region. Over a space with discrete parts (a tagged
+product) the optimization is relaxed: each run keeps the discrete coordinates of its
+start, frozen by bounds of zero width that differ from run to run. A discrete space is
+searched exhaustively.
+
+>>> from trieste_tpu_torch.space import DiscreteSearchSpace
+>>> space = DiscreteSearchSpace(torch.tensor([[0.0], [1.0], [2.0]]))
+>>> acq = lambda x: -torch.sum((x[..., 0, :] - 1.9) ** 2, dim=-1, keepdim=True)
+>>> optimize_discrete(space, acq).tolist()
+[[2.0]]
 """
 from __future__ import annotations
 
@@ -14,7 +26,12 @@ import torch
 
 from ..logging import deferred_scalar, scalar
 from ..ops.lbfgs import minimize_lbfgs
-from ..space import Box, SearchSpace
+from ..space import (
+    GeneralDiscreteSearchSpace,
+    SearchSpace,
+    TaggedMultiSearchSpace,
+    TaggedProductSearchSpace,
+)
 from ..utils.misc import generator_for
 from .interface import AcquisitionFunction
 
@@ -44,10 +61,24 @@ class FailedOptimizationError(Exception):
 def automatic_optimizer_selector(
     space: SearchSpace, f: Vectorizable, generator: Optional[torch.Generator] = None
 ) -> torch.Tensor:
-    """The default optimizer for the space: the continuous optimizer for a :class:`Box`."""
-    if not isinstance(space, Box):
-        raise NotImplementedError(f"no optimizer is ported for {type(space).__name__}")
+    """The default optimizer for the space: exhaustive search over a discrete space, the
+    continuous optimizer (relaxed where parts are discrete) over any other."""
+    if isinstance(space, GeneralDiscreteSearchSpace):
+        return optimize_discrete(space, f)
     return generate_continuous_optimizer()(space, f, generator=generator)
+
+
+def optimize_discrete(
+    space: GeneralDiscreteSearchSpace, f: Vectorizable, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """Exhaustive maximization over the points of a discrete space, each slice of a
+    vectorized function on its own: ``[V, D]``."""
+    fn, V = f if isinstance(f, tuple) else (f, 1)
+    points = space.points  # [N, D]
+    with torch.no_grad():
+        vals = fn(points[:, None, :].expand(points.shape[0], V, points.shape[1]))
+    best = torch.argmax(vals.reshape(points.shape[0], V), dim=0)  # [V]
+    return points[best]
 
 
 def _as_vectorized(f: Vectorizable) -> Tuple[Callable[[torch.Tensor], torch.Tensor], int]:
@@ -58,6 +89,22 @@ def _as_vectorized(f: Vectorizable) -> Tuple[Callable[[torch.Tensor], torch.Tens
     return (lambda x: f(x).reshape(x.shape[:-2] + (1,))), 1
 
 
+def _space_bounds_and_discrete_mask(
+    space: SearchSpace,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(lower [D], upper [D], discrete_mask [D])`` for the relaxed optimization: the
+    dimensions of discrete (sub)spaces are masked, and each run keeps their seeded value."""
+    mask = torch.zeros(space.dimension, dtype=torch.bool)
+    if isinstance(space, GeneralDiscreteSearchSpace):
+        mask[:] = True
+    elif isinstance(space, TaggedProductSearchSpace):
+        for tag in space.subspace_tags:
+            if isinstance(space.get_subspace(tag), GeneralDiscreteSearchSpace):
+                lo, hi = space.subspace_dimension_range(tag)
+                mask[lo:hi] = True
+    return space.lower, space.upper, mask.to(space.device)
+
+
 def _optimize_continuous_core(
     acq: Callable[[torch.Tensor], torch.Tensor],
     seeds: torch.Tensor,  # [N, V, D]
@@ -65,10 +112,12 @@ def _optimize_continuous_core(
     upper: torch.Tensor,  # [V, D]
     num_runs: int,
     max_iters: int,
+    discrete_mask: Optional[torch.Tensor] = None,  # [D] bool
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Seed scoring → top-k starts → lockstep multi-start L-BFGS → winner per slice over
-    runs and seeds. ``acq`` maps ``[..., V, D] -> [..., V]``. Returns ``(points [V, D],
-    values [V], improvement over the best seed [V])``."""
+    runs and seeds. ``acq`` maps ``[..., V, D] -> [..., V]``. The dimensions under
+    ``discrete_mask`` keep each run's start: their bounds collapse to it, run by run.
+    Returns ``(points [V, D], values [V], improvement over the best seed [V])``."""
     N, V, D = seeds.shape
     with torch.no_grad():
         seed_vals = acq(seeds)  # [N, V]
@@ -90,9 +139,13 @@ def _optimize_continuous_core(
         x = xflat.reshape(-1, V, D)
         return -torch.sum(acq(x) * slice_scale, dim=-1)
 
+    if discrete_mask is None:
+        discrete_mask = torch.zeros(D, dtype=torch.bool, device=seeds.device)
+    run_lower = torch.where(discrete_mask, starts, lower).reshape(num_runs, V * D)
+    run_upper = torch.where(discrete_mask, starts, upper).reshape(num_runs, V * D)
     res = minimize_lbfgs(
-        neg_sum_acq, starts.reshape(num_runs, V * D), lower=lower.reshape(-1),
-        upper=upper.reshape(-1), max_iters=max_iters,
+        neg_sum_acq, starts.reshape(num_runs, V * D), lower=run_lower, upper=run_upper,
+        max_iters=max_iters,
     )
     opt_points = res.x.reshape(num_runs, V, D)
     with torch.no_grad():
@@ -122,20 +175,37 @@ def generate_continuous_optimizer(
     time."""
 
     def optimize_continuous(
-        space: Box, f: Vectorizable, generator: Optional[torch.Generator] = None
+        space: SearchSpace, f: Vectorizable, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
         generator = generator_for(generator, space.device)
         acq, V = _as_vectorized(f)
         D = space.dimension
         N = num_initial_samples or max(NUM_SAMPLES_MIN, NUM_SAMPLES_DIM * D)
         R = min(num_optimization_runs or NUM_RUNS_DIM * D, N)
-        lower, upper = space.lower.expand(V, D), space.upper.expand(V, D)
 
-        def make_seeds() -> torch.Tensor:  # every slice starts from the same pool
-            return space.sample(generator, N)[:, None, :].expand(N, V, D)
+        if isinstance(space, TaggedMultiSearchSpace):
+            # each slice searches its own region; V may repeat the regions
+            if V % space.num_subspaces != 0:
+                raise ValueError(
+                    f"The vectorization of the target function {V} must be a multiple of "
+                    f"the number of subspaces {space.num_subspaces}"
+                )
+            repeats = V // space.num_subspaces
+            lower, upper = space.lower.repeat(repeats, 1), space.upper.repeat(repeats, 1)
+            discrete_mask = None
+
+            def make_seeds() -> torch.Tensor:
+                return space.sample(generator, N).repeat(1, repeats, 1)  # [N, V, D]
+
+        else:
+            lower_d, upper_d, discrete_mask = _space_bounds_and_discrete_mask(space)
+            lower, upper = lower_d.expand(V, D), upper_d.expand(V, D)
+
+            def make_seeds() -> torch.Tensor:  # every slice starts from the same pool
+                return space.sample(generator, N)[:, None, :].expand(N, V, D)
 
         points, values, improvement = _optimize_continuous_core(
-            acq, make_seeds(), lower, upper, R, MAX_ITERS
+            acq, make_seeds(), lower, upper, R, MAX_ITERS, discrete_mask
         )
         scalar("spo_af_evaluations", N + R * MAX_ITERS)
         deferred_scalar("spo_improvement_on_initial_samples", lambda: float(improvement.sum()))
@@ -150,7 +220,7 @@ def generate_continuous_optimizer(
                 )
             recoveries += 1
             new_points, new_values, _ = _optimize_continuous_core(
-                acq, make_seeds(), lower, upper, R, MAX_ITERS
+                acq, make_seeds(), lower, upper, R, MAX_ITERS, discrete_mask
             )
             replace = ~torch.isfinite(values) & torch.isfinite(new_values)
             points = torch.where(replace[:, None], new_points, points)
@@ -214,8 +284,12 @@ def generate_random_search_optimizer(num_samples: int = NUM_SAMPLES_MIN) -> Acqu
         space: SearchSpace, f: Vectorizable, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
         acq, V = _as_vectorized(f)
-        flat = space.sample(generator_for(generator, space.device), num_samples)
-        seeds = flat[:, None, :].expand(num_samples, V, flat.shape[-1])
+        generator = generator_for(generator, space.device)
+        if isinstance(space, TaggedMultiSearchSpace):
+            seeds = space.sample(generator, num_samples)  # [N, V, D]
+        else:
+            flat = space.sample(generator, num_samples)
+            seeds = flat[:, None, :].expand(num_samples, V, flat.shape[-1])
         with torch.no_grad():
             best = torch.argmax(acq(seeds), dim=0)  # [V]
         return seeds[best, torch.arange(V, device=seeds.device)]

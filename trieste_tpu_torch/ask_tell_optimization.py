@@ -22,6 +22,7 @@ from .acquisition.rule import (
     EfficientGlobalOptimization,
     LocalDatasetsAcquisitionRule,
 )
+from .acquisition.utils import with_local_datasets
 from .bayesian_optimizer import Record, _match_tag, _single, optimize_model_and_save_result
 from .data import Dataset
 from .logging import flush_deferred_summaries
@@ -89,9 +90,12 @@ class AskTellOptimizerABC(ABC):
             acquisition_rule = EfficientGlobalOptimization()
         self._acquisition_rule = acquisition_rule
         if isinstance(acquisition_rule, LocalDatasetsAcquisitionRule):
-            # its per-region datasets are made here, from local_data_ixs where given
-            raise NotImplementedError(
-                "rules with local datasets (and local_data_ixs) wait for the trust regions"
+            # the regions, and a local dataset per region: the rows at local_data_ixs[i]
+            # where given, else a copy of the global dataset (a restored state already
+            # carries its local datasets, which are kept)
+            acquisition_rule.initialize_subspaces(search_space)
+            self._datasets = with_local_datasets(
+                self._datasets, acquisition_rule.num_local_datasets, local_data_ixs
             )
 
         self._refilter()

@@ -5,6 +5,11 @@ returns a function of it) → observer → dataset append → ``rule.filter_data
 update and training → summaries. Any exception ends the run as an ``Err`` result that
 carries the history so far. Records and results are saved with ``torch.save`` and loaded
 with ``torch.load``; load only files that this package wrote.
+
+A rule with local datasets (a trust-region fleet) gets its regions and one local copy of
+each global dataset at step 0; its ``[B, V, D]`` points are observed through
+:func:`~trieste_tpu_torch.objectives.utils.mk_batch_observer`, which also gives each
+region its own new observations.
 """
 from __future__ import annotations
 
@@ -14,8 +19,11 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Callable, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
+from .acquisition.rule import LocalDatasetsAcquisitionRule
+from .acquisition.utils import with_local_datasets
 from .data import Dataset
 from .logging import (
     deferred_scalar,
@@ -25,6 +33,7 @@ from .logging import (
     set_step_number,
 )
 from .models.interfaces import ProbabilisticModel, TrainableProbabilisticModel
+from .objectives.utils import mk_batch_observer
 from .observer import OBJECTIVE, Observer
 from .space import SearchSpace
 from .types import Tag
@@ -244,6 +253,9 @@ class BayesianOptimizer:
         history: list = []
         step = start_step
         try:
+            if isinstance(acquisition_rule, LocalDatasetsAcquisitionRule) and start_step == 0:
+                acquisition_rule.initialize_subspaces(self._search_space)
+                datasets = with_local_datasets(datasets, acquisition_rule.num_local_datasets)
             acquisition_state, filtered_datasets = filtered(acquisition_state)
             if fit_model and fit_initial_model and start_step == 0:
                 with Timer() as initial_fit_timer:
@@ -280,7 +292,7 @@ class BayesianOptimizer:
                         else:
                             query_points = points_or_stateful
                     with Timer() as observation_timer:
-                        observer_output = self._observer(query_points)
+                        observer_output = self._call_observer(query_points)
                         tagged_output = (
                             observer_output
                             if isinstance(observer_output, Mapping)
@@ -307,6 +319,11 @@ class BayesianOptimizer:
             return OptimizationResult(Err(error), history)
 
         return OptimizationResult(Ok(Record(datasets, models, acquisition_state)), history)
+
+    def _call_observer(self, query_points: torch.Tensor):
+        if query_points.ndim == 3:  # [B, V, D]: one column per region
+            return mk_batch_observer(self._observer)(query_points)
+        return self._observer(query_points)
 
     def continue_optimization(
         self, num_steps: int, previous_result: OptimizationResult, **kwargs: Any
@@ -344,3 +361,44 @@ def optimize_model_and_save_result(model: TrainableProbabilisticModel, dataset: 
     if hasattr(result, "loss"):
         deferred_scalar("model.training_loss", lambda: float(result.loss))
     return result
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def stop_at_minimum(
+    minimum: Optional[Any] = None,
+    minimizers: Optional[Any] = None,
+    minimum_rtol: float = 0.005,
+    minimum_atol: float = 0.0,
+    minimizers_atol: float = 1e-5,
+    minimizers_rtol: float = 0.0,
+) -> EarlyStopCallback:
+    """An early-stop callback: stop once the best observation is close to the known
+    ``minimum``, or the best point close to one of the known ``minimizers``."""
+
+    def callback(
+        datasets: Mapping[Tag, Dataset],
+        _models: Mapping[Tag, ProbabilisticModel],
+        _state: Optional[Any],
+    ) -> bool:
+        tagged = ignoring_local_tags(datasets)
+        if OBJECTIVE not in tagged:
+            return False
+        qp, obs = tagged[OBJECTIVE].astuple()
+        if obs.shape[0] == 0:
+            return False
+        idx = int(torch.argmin(obs[:, 0]))
+        best_y, best_x = _host(obs[idx, 0]), _host(qp[idx])
+        if minimum is not None and np.allclose(
+            best_y, _host(minimum), rtol=minimum_rtol, atol=minimum_atol
+        ):
+            return True
+        if minimizers is not None:
+            close = np.isclose(best_x, _host(minimizers), rtol=minimizers_rtol, atol=minimizers_atol)
+            if np.any(np.all(close, axis=-1)):
+                return True
+        return False
+
+    return callback

@@ -5,12 +5,24 @@ arrays here, so that both packages compute on the same parameters and data.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import math
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .acquisition.rule import AsynchronousRuleState
+from .acquisition.trust_region import (
+    BatchTrustRegionState,
+    SingleObjectiveTrustRegionBox,
+    SingleObjectiveTrustRegionDiscrete,
+    TREGOBox,
+    TURBOBox,
+    UpdatableTrustRegion,
+    UpdatableTrustRegionBox,
+    UpdatableTrustRegionDiscrete,
+    UpdatableTrustRegionProduct,
+)
 from .data import Dataset
 from .models.gp.posterior import GPRCache, GPRParams
 from .models.gp.priors import GPPriors
@@ -115,3 +127,75 @@ def asynchronous_rule_state_from_numpy(
     if pending_points is None:
         return AsynchronousRuleState(None)
     return AsynchronousRuleState(_tensor(pending_points, device, dtype))
+
+
+def _optional_tensor(a, like: torch.Tensor) -> Optional[torch.Tensor]:
+    return None if a is None else _tensor(a, like.device, like.dtype)
+
+
+def trust_region_box_state_from_numpy(
+    region: UpdatableTrustRegionBox,
+    lower,
+    upper,
+    *,
+    location=None,
+    eps=None,
+    y_min: float = math.inf,
+    needs_init: bool = False,
+    region_initialized: bool = True,
+    is_global: Optional[bool] = None,
+    L: Optional[float] = None,
+    success_counter: int = 0,
+    failure_counter: int = 0,
+) -> UpdatableTrustRegionBox:
+    """Put a box region in a given state, in place, on its device and with its dtype:
+    its bounds, and where the class has them its location, ``eps`` (or TuRBO's ``L`` and
+    counters), the minimum it tracks, its flags and TREGO's phase. Returns the region."""
+    region._set_bounds(np.asarray(lower), np.asarray(upper))
+    like = region.lower
+    if isinstance(region, SingleObjectiveTrustRegionBox):
+        region.location = _optional_tensor(location, like)
+        region.eps = _optional_tensor(eps, like)
+        region._region_initialized = bool(region_initialized)
+    if isinstance(region, TREGOBox) and is_global is not None:
+        region._is_global = bool(is_global)
+    if isinstance(region, TURBOBox):
+        region.location = _optional_tensor(location, like)
+        region.L = float(L if L is not None else region.L_init)
+        region.success_counter = int(success_counter)
+        region.failure_counter = int(failure_counter)
+    region._y_min = float(y_min)
+    region._needs_init = bool(needs_init)
+    return region
+
+
+def trust_region_discrete_state_from_numpy(
+    region: UpdatableTrustRegionDiscrete,
+    points,
+    *,
+    location=None,
+    eps: Optional[float] = None,
+    y_min: float = math.inf,
+    needs_init: bool = False,
+) -> UpdatableTrustRegionDiscrete:
+    """Put a discrete region in a given state, in place: its points and, for
+    :class:`SingleObjectiveTrustRegionDiscrete`, its location, ``eps``, minimum and flag."""
+    like = region.global_search_space.points
+    region._points = _tensor(points, like.device, like.dtype).reshape(-1, like.shape[-1])
+    if isinstance(region, SingleObjectiveTrustRegionDiscrete):
+        region.location = _optional_tensor(location, like)
+        region.eps = float(eps if eps is not None else region._zeta)
+        region._y_min = float(y_min)
+        region._needs_init = bool(needs_init)
+    return region
+
+
+def batch_trust_region_state_from_regions(
+    regions: Sequence[UpdatableTrustRegion],
+) -> BatchTrustRegionState:
+    """:class:`BatchTrustRegionState` over regions in the state given (product regions
+    recompute their geometry from their members)."""
+    for region in regions:
+        if isinstance(region, UpdatableTrustRegionProduct):
+            region._sync()
+    return BatchTrustRegionState(tuple(regions))

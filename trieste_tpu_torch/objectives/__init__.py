@@ -9,4 +9,4 @@ from .single_objectives import (
     hartmann_6,
     scaled_branin,
 )
-from .utils import mk_observer
+from .utils import mk_batch_observer, mk_observer
