@@ -89,12 +89,28 @@ Phases, each printing its own lines and its seconds:
    its own region; every local dataset at capacity 1024 with as many points as its region
    holds; one kernel launch over the 1,310,720 seed rows, held against its fp64 plain
    version on those rows;
-16. one JSON line describing each kernel. Its ``max_abs_err`` covers every case held to
-   the contract, including the kernel on the fitted models that phases 4 to 7, 12, 14 and
-   15 leave behind; the white-noise case has keys of its own.
+16. multi-objective BO to the reference's envelopes
+   (``tests/integration/test_multi_objective_bayesian_optimization.py:31-110``): VLMOP2
+   from the JAX test's 10-point initial design (``VLMOP2_DESIGNS``), a
+   ``TrainableModelStack`` of two ``build_gpr`` members at a
+   likelihood variance of 1e-5; the log hypervolume difference to the ideal front below
+   -3.65 after 20 steps of EHVI (default optimizer, 5000 seeds), below -3.44 after 15 of
+   qEHVI over 2 points and below -3.2095 after 10 of HIPPO over 4 (500 seeds each); and
+   qHSRI over 3 points (population 50, 15 generations) on SimpleQuadratic within rtol 0.05
+   in 6 steps (``tests/integration/test_bayesian_optimization.py:100-102,136-140``); seeds
+   (the JAX test's designs 0 to 4) as in phase 8. EHVI must launch the kernel, and the kernel is held against its fp64
+   plain version on each member's first seed pool;
+17. a multi-objective stack at full width: DTLZ2(6, 2) with 1000 initial points, a
+   two-member stack at capacity 1024 fitted once, and one acquire each of EHVI and HIPPO
+   over 4 points on phase 5's optimizer (131072 seeds, 60 runs) and of qEHVI over 2
+   points (500 seeds); EHVI launches the kernel once per member, and the kernel is held
+   against its fp64 plain version on each member's pool;
+18. one JSON line describing each kernel. Its ``max_abs_err`` covers every case held to
+   the contract, including the kernel on the fitted models that phases 4 to 7, 12, 14 to
+   17 leave behind; the white-noise case has keys of its own.
 
-Phases 6 to 15 each print their seconds, the bytes reckoned for their largest tensors and
-``torch.cuda.max_memory_allocated()``; phases 11 to 15 print their kernel launches.
+Phases 6 to 17 each print their seconds, the bytes reckoned for their largest tensors and
+``torch.cuda.max_memory_allocated()``; phases 11 to 17 print their kernel launches.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before it; so does a machine without a CUDA device, or a directory without the package.
@@ -125,6 +141,43 @@ SCALED_BRANIN_RTOL = 0.005
 # noise/signal ratio (1e-5), and the default y_var/100 smooths ScaledBranin so much that TREGO
 # stalls (two of five seeds at rel err 2.9e-2 and 1.1e-1 after 25 steps, CPU rehearsal)
 TRUST_REGION_NOISE = 1e-4
+# The multi-objective stacks' likelihood variance, the reference's
+# (tests/integration/test_multi_objective_bayesian_optimization.py:36)
+MULTI_OBJECTIVE_NOISE = 1e-5
+QHSRI_RTOL = 0.05  # tests/integration/test_bayesian_optimization.py:136-140
+# The initial designs of the JAX package's VLMOP2 test for seeds 0 to 4, 10 points in
+# [-2, 2]^2 each (``_run_vlmop2``: ``Box.sample(jax.random.split(PRNGKey(seed))[0], 10)``
+# in float32), as numbers: the smoke imports no JAX. A run's log hypervolume difference is
+# a function of its initial design (the seed pools and fit restarts barely move it), and
+# the reference's envelopes were set on one such design, so phase 16 starts from these;
+# tests/test_torch_multi_objective.py checks them against the JAX package.
+VLMOP2_DESIGNS = (
+    (1.3692564964294434, -1.2704854011535645, -1.091287612915039, -1.5170974731445312,
+     -1.2327461242675781, 0.8880600929260254, 1.0617823600769043, -1.3898382186889648,
+     1.8068251609802246, -1.8827581405639648, -1.6051578521728516, 0.21257305145263672,
+     -1.502211570739746, 0.3782482147216797, 1.8379631042480469, 0.7729086875915527,
+     0.8963837623596191, -0.7273426055908203, 1.2802858352661133, 0.5641050338745117),
+    (0.8104610443115234, -1.0606613159179688, 1.2714581489562988, -1.3162355422973633,
+     -1.894608974456787, 1.6904377937316895, 0.7778935432434082, -0.43355751037597656,
+     0.8132576942443848, -0.495572566986084, 1.366013526916504, -0.9114565849304199,
+     -1.171854019165039, 0.041259765625, -1.8504228591918945, 1.2032980918884277,
+     -0.781919002532959, -1.4285759925842285, -0.02313709259033203, 1.364560604095459),
+    (0.5451722145080566, 0.5713286399841309, -1.6282048225402832, 1.0003752708435059,
+     0.36612558364868164, -0.717522144317627, 1.148510456085205, 0.10046005249023438,
+     1.577423095703125, 0.15921545028686523, 1.3232612609863281, 1.9498767852783203,
+     0.8826837539672852, -0.4328298568725586, -0.8773860931396484, 1.7663788795471191,
+     -0.666285514831543, -0.3587007522583008, -0.5342960357666016, 1.4116387367248535),
+    (-1.9652185440063477, -1.8240461349487305, -0.7537078857421875, -1.3290314674377441,
+     0.3017139434814453, 1.4693565368652344, 1.0966095924377441, -1.932948112487793,
+     1.9707446098327637, -1.4816293716430664, -1.9908084869384766, 0.6316494941711426,
+     -0.1273331642150879, 0.2266697883605957, -0.04206371307373047, 0.8642339706420898,
+     0.9789900779724121, 0.9609246253967285, -1.2050437927246094, 0.709561824798584),
+    (0.1873340606689453, 1.2506747245788574, 1.0214686393737793, -0.15569686889648438,
+     0.31362056732177734, -0.7756624221801758, -1.478074550628662, 1.052077293395996,
+     -0.6251931190490723, 1.7026515007019043, -0.1335611343383789, 1.6528840065002441,
+     0.7707719802856445, 0.9017624855041504, 1.3112974166870117, -1.4587950706481934,
+     0.8654417991638184, -1.9544463157653809, -1.9981107711791992, -0.03472185134887695),
+)
 
 
 def fail(msg: str) -> None:
@@ -546,7 +599,7 @@ def hold_kernel_on_pool(label, model, flat, chunk=131072):
           f"C={args[2].shape[0]} live {int(cache.mask.sum())} D={flat.shape[1]}): mean abs "
           f"{em:.3e}, var abs {ev:.3e} {'ok' if ok else 'OUT OF TOLERANCE'}")
     if not ok:
-        fail(f"{label}: kernel disagrees with its plain version on the trust-region pool")
+        fail(f"{label}: kernel disagrees with its plain version on the pool")
     return max(em, ev)
 
 
@@ -710,6 +763,21 @@ def converge_trust_regions(dev, max_abs_err):
     return max_abs_err, launches
 
 
+def recording_pools(store):
+    """Make the fused path record ``(params, cache, rows)`` of every launch into ``store``;
+    returns the function to put back."""
+    from trieste_tpu_torch.ops import fused_predict as fp
+
+    original = fp.fused_predict_f
+
+    def recording(params, cache, flat):
+        store.append((params, cache, flat))
+        return original(params, cache, flat)
+
+    fp.fused_predict_f = recording
+    return original
+
+
 def trust_region_fleet(model, dataset, space, dev, max_abs_err):
     """Phase 15: one filter and one acquire of a ten-region fleet at full width; returns the
     running max abs error and the acquire's kernel launches."""
@@ -740,14 +808,8 @@ def trust_region_fleet(model, dataset, space, dev, max_abs_err):
         if local.capacity != C or local.num_points != (members or len(dataset)):
             fail(f"trust-region fleet: region {v}'s local dataset holds {local!r}, its region "
                  f"{members} of the points")
-    pools = []
-    original = fp.fused_predict_f
-
-    def recording(params, cache, flat):
-        pools.append(flat)
-        return original(params, cache, flat)
-
-    fp.fused_predict_f = recording
+    recorded = []
+    original = recording_pools(recorded)
     fp.launches = 0
     try:
         (state, points), acquire_s = timed(
@@ -756,6 +818,7 @@ def trust_region_fleet(model, dataset, space, dev, max_abs_err):
     finally:
         fp.fused_predict_f = original
     launches = fp.launches
+    pools = [flat for _, _, flat in recorded]
     rows = [p.shape[0] for p in pools]
     peak = torch.cuda.max_memory_allocated()
     spread = pairwise_min_distance(points[0])
@@ -784,6 +847,215 @@ def trust_region_fleet(model, dataset, space, dev, max_abs_err):
     print(f"phase 15 kernel at the fleet's {N * V} rows: {fleet_ms:.3f} ms, bound {fleet_bound_ms:.3f} ms "
           f"({bound_by}), {100 * fleet_bound_ms / fleet_ms:.1f}% of bound")
     return max_abs_err, launches, fleet_ms
+
+
+def stacked_model(data, space, likelihood_variance=None):
+    """The reference's multi-objective model: a ``TrainableModelStack`` of one
+    ``build_gpr`` per objective (``tests/integration/test_multi_objective_bayesian_optimization.py:31-38``)."""
+    from trieste_tpu_torch import Dataset
+    from trieste_tpu_torch.models import TrainableModelStack
+    from trieste_tpu_torch.models.gp import build_gpr
+
+    qp, obs = data.trimmed_query_points, data.trimmed_observations
+    return TrainableModelStack(*[
+        (build_gpr(Dataset.from_arrays(qp, obs[:, i:i + 1]), space,
+                   likelihood_variance=likelihood_variance), 1)
+        for i in range(obs.shape[-1])
+    ])
+
+
+def log_hv_difference(observations, problem, dev) -> float:
+    """The reference's measure: the log of the hypervolume between the ideal front (100
+    points) and the observed one, below the ideal front's reference point, in fp64."""
+    from trieste_tpu_torch.acquisition.multi_objective import Pareto, get_reference_point
+
+    ideal = problem.gen_pareto_optimal_points(100, device=dev).double()
+    ref = get_reference_point(ideal)
+    gap = Pareto(ideal).hypervolume_indicator(ref) - Pareto(
+        observations.double()).hypervolume_indicator(ref)
+    return float(torch.log(torch.clamp_min(gap, 1e-12)))
+
+
+def vlmop2_rules():
+    """Phase 16's VLMOP2 rules as the reference's test sets them up
+    (``tests/integration/test_multi_objective_bayesian_optimization.py:71-110``):
+    ``(name, rule factory, query points, steps, envelope on the log hypervolume
+    difference)``."""
+    from trieste_tpu_torch.acquisition import (
+        HIPPO,
+        BatchMonteCarloExpectedHypervolumeImprovement,
+        EfficientGlobalOptimization,
+        ExpectedHypervolumeImprovement,
+        generate_continuous_optimizer,
+    )
+
+    ego, small = EfficientGlobalOptimization, generate_continuous_optimizer(num_initial_samples=500)
+    return (
+        ("EHVI", lambda: ego(ExpectedHypervolumeImprovement()), 1, 20, -3.65),
+        ("qEHVI", lambda: ego(BatchMonteCarloExpectedHypervolumeImprovement(500), small, 2), 2,
+         15, -3.44),
+        ("HIPPO", lambda: ego(HIPPO(), small, 4), 4, 10, -3.2095),
+    )
+
+
+def converge_multi_objective(dev, max_abs_err):
+    """Phase 16: the reference's VLMOP2 envelopes for EHVI, qEHVI(2) and HIPPO(4), and
+    qHSRI(3) to the minimum of SimpleQuadratic. Returns the running max abs error and each
+    rule's first-seed launches."""
+    from types import SimpleNamespace
+
+    from trieste_tpu_torch import BayesianOptimizer
+    from trieste_tpu_torch.acquisition import BatchHypervolumeSharpeRatioIndicator
+    from trieste_tpu_torch.objectives import VLMOP2, SimpleQuadratic, mk_observer
+    from trieste_tpu_torch.ops import fused_predict as fp
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    space = VLMOP2.search_space.to(dev)
+    observer = mk_observer(VLMOP2.objective)
+    launches, first_pools = {}, []
+    for name, make_rule, B, steps, envelope in vlmop2_rules():
+
+        def run_seed(seed):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            initial = observer(torch.tensor(VLMOP2_DESIGNS[seed], device=dev).reshape(10, 2))
+            model = stacked_model(initial, space, likelihood_variance=MULTI_OBJECTIVE_NOISE)
+            pools = []
+            original = recording_pools(pools)
+            fp.launches = 0
+            t0 = time.perf_counter()
+            try:
+                result = BayesianOptimizer(observer, space).optimize(
+                    steps, initial, model, make_rule(), generator=gen, track_state=False)
+            finally:
+                fp.fused_predict_f = original
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if not result.is_ok:
+                fail(f"phase 16 {name}: the run failed: {result.final_result.error!r}")
+            data = result.try_get_final_dataset()
+            diff = log_hv_difference(data.trimmed_observations, VLMOP2, dev)
+            ratios = [float(m.params.noise_variance / m.params.kernel.variance) for m in model.models]
+            ok = diff < envelope and len(data) == 10 + B * steps
+            print(f"phase 16 {name} over {B} point(s) on VLMOP2, design {seed}: {steps} steps, log "
+                  f"hv difference {diff:.4f} (envelope {envelope}), {seconds / steps:.3f} s/step, "
+                  f"kernel launches {fp.launches}, members' noise/signal at the end "
+                  f"{[f'{r:.3e}' for r in ratios]} {'ok' if ok else 'MISSED'}")
+            if seed == 0:
+                first_pools.extend(pools[:2])
+            return ok, fp.launches
+
+        launches[name] = four_of_five(f"phase 16 {name}", run_seed)
+    if launches["EHVI"] == 0:
+        fail("phase 16 EHVI never launched the fused kernel")
+    for i, (params, cache, flat) in enumerate(first_pools):
+        member = SimpleNamespace(params=params, posterior_cache=cache)
+        max_abs_err = max(max_abs_err, hold_kernel_on_pool(
+            f"phase 16 EHVI member {i}'s first pool", member, flat))
+
+    quadratic = SimpleQuadratic.search_space.to(dev)
+    minimum = float(SimpleQuadratic.minimum[0])
+
+    def run_qhsri(seed):
+        fp.launches = 0
+        result, evaluations, seconds = bo_run(
+            lambda: BatchHypervolumeSharpeRatioIndicator(3, ga_population_size=50,
+                                                         ga_n_generations=15),
+            SimpleQuadratic, quadratic, 6, seed, likelihood_variance=1e-7,
+            stop_rtol=QHSRI_RTOL)
+        best = float(result.try_get_final_dataset().trimmed_observations.min())
+        rel, steps = relative_error(best, minimum), evaluations // 3
+        ok = rel <= QHSRI_RTOL
+        print(f"phase 16 qHSRI over 3 points on SimpleQuadratic, seed {seed}: {steps} steps of 6, "
+              f"best {best:.6f}, rel err {rel:.3e} (limit {QHSRI_RTOL}), "
+              f"{seconds / max(steps, 1):.3f} s/step, kernel launches {fp.launches} "
+              f"{'ok' if ok else 'MISSED'}")
+        return ok, fp.launches
+
+    launches["qHSRI"] = four_of_five("phase 16 qHSRI", run_qhsri)
+    # qEHVI's largest intermediate [seeds, S, K, T, B, M] at 500 seeds, 500 samples, its
+    # cells K (at most the 40 points observed, plus one), 3 subsets of 2 points, 2 objectives
+    memory_line("phase 16", 500 * 500 * 41 * 3 * 2 * 2 * 4, t_phase)
+    return max_abs_err, launches
+
+
+def multi_objective_full_width(dev, max_abs_err):
+    """Phase 17: one acquire each of EHVI, HIPPO(4) and qEHVI(2) on a two-member stack at
+    capacity 1024; returns the running max abs error and the launches by rule."""
+    from trieste_tpu_torch.acquisition import (
+        HIPPO,
+        BatchMonteCarloExpectedHypervolumeImprovement,
+        EfficientGlobalOptimization,
+        ExpectedHypervolumeImprovement,
+        generate_continuous_optimizer,
+    )
+    from trieste_tpu_torch.acquisition.multi_objective import Pareto
+    from trieste_tpu_torch.objectives import DTLZ2, mk_observer
+    from trieste_tpu_torch.ops import fused_predict as fp
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    problem = DTLZ2(6, 2)
+    space = problem.search_space.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    data = mk_observer(problem.objective)(space.sample(gen, 1000))
+    model = stacked_model(data, space)
+    _, fit_s = timed(lambda: model.optimize(data))
+    C, D, N = data.capacity, space.dimension, 131072
+    if any(m.dataset.capacity != C for m in model.models) or C != 1024:
+        fail(f"phase 17: expected every member at capacity 1024, got "
+             f"{[m.dataset.capacity for m in model.models]}")
+    mean, _ = model.predict(data.trimmed_query_points)
+    K = Pareto(mean).front.shape[0] + 1  # two objectives: one cell per front point, and one
+    ego, wide = EfficientGlobalOptimization, generate_continuous_optimizer(num_initial_samples=N)
+    # reckoned: the pool [N, D] and its scaled copy; per member the kernel's mean and
+    # variance; the EHVI cell terms [N, K, M], about eight of them alive at once. HIPPO's
+    # penalty adds per member the cross-covariance [N, C], its solve and their product's
+    # operands, about four [N, C]. qEHVI at 500 seeds holds [500, S, K, T, B, M] arrays,
+    # about four of them
+    ehvi_bytes = 2 * N * D * 4 + 2 * 2 * N * 4 + 8 * N * K * 2 * 4
+    rules = (
+        ("EHVI", lambda: ego(ExpectedHypervolumeImprovement(), wide), 1, ehvi_bytes),
+        ("HIPPO", lambda: ego(HIPPO(), wide, 4), 4, ehvi_bytes + 4 * N * C * 4),
+        ("qEHVI", lambda: ego(BatchMonteCarloExpectedHypervolumeImprovement(500),
+                              generate_continuous_optimizer(num_initial_samples=500), 2), 2,
+         4 * 500 * 500 * K * 3 * 2 * 2 * 4),
+    )
+    launches = {}
+    print(f"phase 17 DTLZ2(6, 2), 1000 points in a two-member stack (capacity {C}): fit "
+          f"{fit_s:.3f} s; members' noise/signal "
+          f"{[f'{float(m.params.noise_variance / m.params.kernel.variance):.3e}' for m in model.models]}; "
+          f"{K} cells")
+    for name, make_rule, B, reckoned in rules:
+        torch.cuda.reset_peak_memory_stats()
+        pools = []
+        original = recording_pools(pools)
+        fp.launches = 0
+        try:
+            points, seconds = timed(lambda: make_rule().acquire_single(space, model, data,
+                                                                      generator=gen))
+        finally:
+            fp.fused_predict_f = original
+        launches[name] = fp.launches
+        peak = torch.cuda.max_memory_allocated()
+        spread = pairwise_min_distance(points)
+        print(f"phase 17 {name}, {B} query point(s), {N if name != 'qEHVI' else 500} seeds: one "
+              f"acquire {seconds:.3f} s, kernel launches {launches[name]} over rows "
+              f"{[int(f.shape[0]) for _, _, f in pools]}, reckoned peak {reckoned / 1e9:.3f} GB, "
+              f"max_memory_allocated {peak / 1e9:.3f} GB, least distance between the points "
+              f"{spread:.3e}")
+        if tuple(points.shape) != (B, D) or not bool(space.contains(points).all()):
+            fail(f"phase 17 {name}: expected {B} points in the box, got {tuple(points.shape)}")
+        if B > 1 and spread <= 1e-6:
+            fail(f"phase 17 {name}: the batch repeats a point")
+        if name == "EHVI":
+            if launches[name] != 2:
+                fail(f"phase 17 EHVI: expected one launch per member, got {launches[name]}")
+            for i, (member, (_, _, flat)) in enumerate(zip(model.models, pools)):
+                max_abs_err = max(max_abs_err, hold_kernel_on_pool(
+                    f"phase 17 EHVI member {i}'s pool", member, flat))
+    memory_line("phase 17", max(r[3] for r in rules), t_phase)
+    return max_abs_err, launches
 
 
 def main() -> int:
@@ -817,6 +1089,7 @@ def main() -> int:
     from trieste_tpu_torch.ops.kernels import stationary
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # -- phase 1: device ------------------------------------------------------------
     t_phase = time.perf_counter()
@@ -1360,8 +1633,11 @@ def main() -> int:
     max_abs_err, fleet_launches, fleet_ms = trust_region_fleet(
         hartmann_model, hartmann_final, hartmann_space, dev, max_abs_err
     )
+    max_abs_err, multi_objective_launches = converge_multi_objective(dev, max_abs_err)
+    max_abs_err, multi_objective_full_width_launches = multi_objective_full_width(dev, max_abs_err)
+    print(f"phases 1-17 seconds: {time.perf_counter() - t_start:.2f}")
 
-    # -- phase 16: kernels -----------------------------------------------------------
+    # -- phase 18: kernels -----------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "fused_predict",
         "route": "cuda",
@@ -1376,6 +1652,8 @@ def main() -> int:
         "launches_active_learning": active_learning_launches,
         "launches_trust_regions": trust_region_launches,
         "launches_trust_region_fleet": fleet_launches,
+        "launches_multi_objective": multi_objective_launches,
+        "launches_multi_objective_full_width": multi_objective_full_width_launches,
         "max_abs_err": max_abs_err,
         "white_noise_abs_err": white_noise["abs_err"],
         "white_noise_plain_fp32_abs_err": white_noise["plain_fp32_abs_err"],

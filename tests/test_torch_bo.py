@@ -3,6 +3,8 @@ continuous optimizer's core against the JAX package on identical numpy seeds (fl
 and short ``BayesianOptimizer.optimize`` runs with small budgets."""
 from __future__ import annotations
 
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,15 +12,19 @@ import pytest
 import torch
 from jax.tree_util import Partial
 
+from trieste_tpu import bayesian_optimizer as jbo
 from trieste_tpu.acquisition import optimizer as jopt
+from trieste_tpu.acquisition import rule as jrule
 from trieste_tpu.acquisition.function import function as jfun
 from trieste_tpu.data import Dataset as JDataset
 from trieste_tpu.models.gp.gpr import GaussianProcessRegression as JGPR
 from trieste_tpu.models.gp.posterior import GPRParams as JParams
 from trieste_tpu.objectives import single_objectives as jobj
 from trieste_tpu.ops.kernels import stationary as jstationary
+from trieste_tpu.space import Box as JBox
 from trieste_tpu_torch import BayesianOptimizer, Dataset
 from trieste_tpu_torch.acquisition import optimizer as topt
+from trieste_tpu_torch.acquisition import rule as trule
 from trieste_tpu_torch.acquisition.function import function as tfun
 from trieste_tpu_torch.acquisition.rule import EfficientGlobalOptimization
 from trieste_tpu_torch.convert import gpr_params_from_numpy
@@ -26,6 +32,7 @@ from trieste_tpu_torch.models.gp import build_gpr
 from trieste_tpu_torch.models.gp.gpr import GaussianProcessRegression
 from trieste_tpu_torch.objectives import ScaledBranin, mk_observer
 from trieste_tpu_torch.ops import fused_predict
+from trieste_tpu_torch.space import Box as TBox
 
 torch.set_num_threads(1)
 
@@ -207,3 +214,104 @@ def cpu_plain_fused(monkeypatch):
     monkeypatch.setattr(fused_predict, "MIN_POINTS", 256)
     monkeypatch.setattr(fused_predict, "fused_predict_f", counting)
     return sizes
+
+
+def _t(a) -> torch.Tensor:
+    return torch.as_tensor(np.array(a))
+
+
+SAVE_MESSAGE = (
+    "Failed to save the optimization state; pass track_state=False to disable tracking"
+)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.as_tensor(np.array(a))
+
+
+class _LockedModel:
+    """A model that holds a lock, so that it cannot be deep-copied."""
+
+    def __init__(self, predict_dtype):
+        self._lock = threading.Lock()
+        self._zeros = predict_dtype
+
+    def predict(self, query_points):
+        return self._zeros(query_points), self._zeros(query_points)
+
+    def update(self, dataset):
+        pass
+
+    def optimize(self, dataset):
+        pass
+
+
+class _JFixed(jrule.AcquisitionRule):
+    def acquire(self, search_space, models, datasets=None, key=None):
+        return jnp.asarray([[0.5, 0.5]])
+
+
+class _TFixed(trule.AcquisitionRule):
+    def acquire(self, search_space, models, datasets=None, generator=None):
+        return torch.tensor([[0.5, 0.5]], dtype=F64)
+
+
+def test_a_state_that_cannot_be_saved_ends_the_loop_as_in_jax():
+    X = np.array([[0.1, 0.2], [0.7, 0.4]])
+    Y = np.sum(X, -1, keepdims=True)
+    jdata = JDataset.from_arrays(jnp.asarray(X), jnp.asarray(Y))
+    jmodel = _LockedModel(lambda x: jnp.zeros(x.shape[:-1] + (1,)))
+    jresult = jbo.BayesianOptimizer(lambda x: JDataset.from_arrays(x, jnp.sum(x, -1, keepdims=True)),
+                                    JBox([0.0, 0.0], [1.0, 1.0])).optimize(
+        1, jdata, jmodel, _JFixed(), track_state=True)
+    tdata = Dataset.from_arrays(_t(X), _t(Y))
+    tmodel = _LockedModel(lambda x: torch.zeros(x.shape[:-1] + (1,), dtype=F64))
+    tresult = BayesianOptimizer(lambda x: Dataset.from_arrays(x, torch.sum(x, -1, keepdim=True)),
+                                TBox([0.0, 0.0], [1.0, 1.0], dtype=F64, device="cpu")).optimize(
+        1, tdata, tmodel, _TFixed(), track_state=True)
+    for result in (jresult, tresult):
+        assert not result.final_result.is_ok
+        error = result.final_result.error
+        assert type(error) is NotImplementedError and str(error) == SAVE_MESSAGE
+        assert isinstance(error.__cause__, TypeError)
+    untracked = BayesianOptimizer(lambda x: Dataset.from_arrays(x, torch.sum(x, -1, keepdim=True)),
+                                  TBox([0.0, 0.0], [1.0, 1.0], dtype=F64, device="cpu")).optimize(
+        1, tdata, tmodel, _TFixed(), track_state=False)
+    assert untracked.final_result.is_ok
+
+
+@pytest.mark.parametrize("max_iters", [1, 5])
+def test_continuous_optimizer_takes_max_iters_as_in_jax(monkeypatch, max_iters):
+    """The JAX optimizer's seed pool (its key, unsplit, samples the box) goes into the
+    port; after ``max_iters`` iterations of each of the R runs the points and their values
+    are JAX's."""
+    X = np.random.default_rng(0).uniform(size=(9, 2))
+    Y = np.sum((X - 0.45) ** 2, -1, keepdims=True)  # EI peaks inside the box, near (0.41, 0.51)
+    jmodel = JGPR(JParams(jstationary("matern52", 0.1, [0.2, 0.25], dtype=jnp.float64),
+                          jnp.asarray(1e-4), jnp.asarray(0.1)),
+                  JDataset.from_arrays(jnp.asarray(X), jnp.asarray(Y)))
+    tdata = Dataset.from_arrays(_t(X), _t(Y))
+    tmodel = GaussianProcessRegression(
+        gpr_params_from_numpy("matern52", 0.1, [0.2, 0.25], 1e-4, 0.1, device="cpu", dtype=F64),
+        tdata)
+    jacq = jfun.ExpectedImprovement().prepare_acquisition_function(
+        jmodel, jmodel.get_internal_data())
+    tacq = tfun.ExpectedImprovement().prepare_acquisition_function(tmodel, tdata)
+    N, R, key = 256, 4, jax.random.PRNGKey(3)
+    jspace = JBox([0.0, 0.0], [1.0, 1.0])
+    want = np.asarray(jopt.generate_continuous_optimizer(
+        N, R, optimizer_args={"max_iters": max_iters})(jspace, jacq, key=key))
+    seeds = _t(jspace.sample(key, N))
+    monkeypatch.setattr(TBox, "sample", lambda self, generator, n: seeds)
+    space = TBox([0.0, 0.0], [1.0, 1.0], dtype=F64, device="cpu")
+    got = topt.generate_continuous_optimizer(N, R, optimizer_args={"max_iters": max_iters})(
+        space, tacq)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(tacq(got[:, None, :]).detach().numpy(),
+                               np.asarray(jacq(jnp.asarray(want)[:, None, :])), rtol=1e-9)
+    assert bool(((got > 0.05) & (got < 0.95)).all())  # an interior point: the steps show
+    # one iteration stops short of the default sixty: the argument is read
+    full = topt.generate_continuous_optimizer(N, R)(space, tacq)
+    assert float(tacq(full[:, None, :])) >= float(tacq(got[:, None, :]))
+    if max_iters == 1:
+        assert float(torch.max(torch.abs(full - got))) > 1e-4

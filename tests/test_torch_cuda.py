@@ -433,3 +433,106 @@ def test_kernel_on_a_trust_region_fleet_seed_pool(device):
             args[0], args[1][rows].double(), *(t.double() for t in args[2:]))
         torch.testing.assert_close(mean[rows].double(), want_mean, **MEAN_TOL)
         torch.testing.assert_close(var[rows].double(), want_var, **VAR_TOL)
+
+
+def _dtlz2_stack(device, stack_type=None):
+    """A two-member stack of exact GPs on 1000 DTLZ2(6, 2) points (capacity 1024), with
+    default-noise hyperparameters (no fit)."""
+    from trieste_tpu_torch import Dataset
+    from trieste_tpu_torch.models import TrainableModelStack
+    from trieste_tpu_torch.models.gp import build_gpr
+    from trieste_tpu_torch.objectives import DTLZ2, mk_observer
+
+    problem = DTLZ2(6, 2)
+    space = problem.search_space.to(device)
+    gen = torch.Generator(device=device).manual_seed(6)
+    data = mk_observer(problem.objective)(space.sample(gen, 1000))
+    qp, obs = data.trimmed_query_points, data.trimmed_observations
+    members = [(build_gpr(Dataset.from_arrays(qp, obs[:, i:i + 1]), space), 1) for i in range(2)]
+    return space, gen, data, (stack_type or TrainableModelStack)(*members)
+
+
+def test_stack_ehvi_on_a_full_pool_matches_the_exact_fp64_path(device):
+    """EHVI of a two-member stack over 131,072 seeds: one launch per member, each member's
+    prediction within the kernel's contract of the exact fp64 one, and the scores within
+    that contract pushed through EHVI (to first order in each member's mean and std, with
+    a factor of two)."""
+    from trieste_tpu_torch.acquisition import ExpectedHypervolumeImprovement
+    from trieste_tpu_torch.acquisition.function.multi_objective import _ehvi_fn
+
+    space, gen, data, stack = _dtlz2_stack(device)
+    fn = ExpectedHypervolumeImprovement().prepare_acquisition_function(stack, data)
+    pool = space.sample(gen, 131072)[:, None, :]
+    before = fp.launches
+    with torch.no_grad():
+        got = fn(pool).double()
+    assert fp.launches == before + 2 and got.shape == (131072, 1)
+    members64 = []
+    for m in stack.models:
+        p = m.params
+        p64 = p.replace(kernel=p.kernel.replace(variance=p.kernel.variance.double(),
+                                                lengthscales=p.kernel.lengthscales.double()),
+                        noise_variance=p.noise_variance.double(),
+                        mean_constant=p.mean_constant.double())
+        c64 = tpost.build_cache(p64, m.dataset.query_points.double(),
+                                m.dataset.observations.double(), m.dataset.mask,
+                                with_linvt=False)
+        members64.append((p64, c64))
+        mean32, var32 = tpost.predict_f(p, m.posterior_cache, pool[:, 0])
+        mean64, var64 = tpost.predict_f_reference(p64, c64, pool[:, 0].double())
+        torch.testing.assert_close(mean32.double(), mean64, **MEAN_TOL)
+        torch.testing.assert_close(var32.double(), var64, **VAR_TOL)
+
+    def predict64(x):
+        outs = [tpost.predict_f_reference(p, c, x) for p, c in members64]
+        return torch.cat([o[0] for o in outs], -1), torch.cat([o[1] for o in outs], -1)
+
+    lower, upper = (t.double() for t in fn.args[1:])
+    mean, var = (t.detach().requires_grad_(True) for t in predict64(pool[:, 0].double()))
+    want = _ehvi_fn(lambda x: (mean, var), lower, upper, pool.double())
+    g_mean, g_var = torch.autograd.grad(want.sum(), (mean, var))
+    std = torch.sqrt(var.detach())
+    d_var = VAR_TOL["atol"] + VAR_TOL["rtol"] * var.detach()
+    d_std = torch.sqrt(var.detach() + d_var) - torch.sqrt(torch.clamp_min(var.detach() - d_var, 0.0))
+    g_std = 2.0 * std * g_var  # d/dstd through var = std²
+    limit = 2.0 * torch.sum(g_mean.abs() * (MEAN_TOL["atol"] + MEAN_TOL["rtol"] * mean.detach().abs())
+                            + g_std.abs() * d_std, -1, keepdim=True) + 1e-6
+    assert bool(((got - want.detach()).abs() <= limit).all())
+
+
+def test_stack_sampler_on_the_card_copies_and_saves(device, tmp_path):
+    """A stack's reparametrization sampler frozen from a CUDA generator: a deep copy and a
+    record saved and loaded again sample as it does, on the card."""
+    import copy
+
+    from trieste_tpu_torch import OptimizationResult, Record
+    from trieste_tpu_torch.models import HasReparamSamplerModelStack
+
+    space, gen, data, stack = _dtlz2_stack(device, HasReparamSamplerModelStack)
+    sampler = stack.reparam_sampler(16)
+    x = space.sample(gen, 3)
+    first = sampler.sample(x, generator=torch.Generator(device=device).manual_seed(1))
+    assert first.shape == (16, 3, 2) and first.is_cuda
+    assert all(s._eps.is_cuda for s in sampler._samplers)
+    twin = copy.deepcopy(sampler)
+    torch.testing.assert_close(twin.sample(x), first, rtol=0, atol=0)
+    OptimizationResult(None, [Record({"OBJECTIVE": data}, {"OBJECTIVE": stack}, (sampler, gen))]
+                       ).save(tmp_path)
+    loaded, loaded_gen = OptimizationResult.from_path(tmp_path).history[0].acquisition_state
+    torch.testing.assert_close(loaded.sample(x), first, rtol=0, atol=0)
+    assert loaded_gen.device.type == "cuda"
+    assert torch.equal(torch.rand(4, generator=loaded_gen, device=device),
+                       torch.rand(4, generator=gen, device=device))
+
+
+def test_non_dominated_mask_on_the_card_matches_the_cpu(device):
+    from trieste_tpu_torch.acquisition.multi_objective import non_dominated, non_dominated_mask
+
+    g = torch.Generator(device=device).manual_seed(2)
+    obs = torch.rand(2000, 3, generator=g, device=device)
+    obs[1] = obs[0]
+    got = non_dominated_mask(obs)
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), non_dominated_mask(obs.cpu()))
+    front, mask = non_dominated(obs)
+    assert front.is_cuda and torch.equal(front.cpu(), obs.cpu()[mask.cpu()])

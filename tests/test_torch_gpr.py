@@ -292,3 +292,16 @@ def test_linvt_is_upper_triangular_as_the_kernel_assumes(dtype):
     mean, var = tfp.fused_predict_reference(*args)
     mean_u, var_u = tfp.fused_predict_reference(*args[:4], args[4].triu(), args[5])
     assert torch.equal(mean, mean_u) and torch.equal(var, var_u)
+
+
+@pytest.mark.parametrize("num_rff_features", [64, 1000])
+def test_build_gpr_passes_num_rff_features_to_the_model(num_rff_features):
+    space = tobj.ScaledBranin.search_space.to("cpu", F64)
+    X = torch.rand(6, 2, dtype=F64, generator=torch.Generator().manual_seed(0))
+    data = Dataset.from_arrays(X, tobj.ScaledBranin.objective(X))
+    kwargs = {} if num_rff_features == 1000 else {"num_rff_features": num_rff_features}
+    model = tbuild.build_gpr(data, space, **kwargs)
+    assert model.num_rff_features == num_rff_features
+    trajectory = model.trajectory_sampler().get_trajectory(torch.Generator().manual_seed(1))
+    assert trajectory.features.W.shape == (num_rff_features, 2)
+    assert trajectory.theta.shape == (1, num_rff_features)

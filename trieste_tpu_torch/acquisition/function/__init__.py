@@ -29,14 +29,17 @@ from .function import (
 from .functional import (
     PenalizedAcquisition,
     augmented_expected_improvement,
+    batch_ehvi,
     batch_expected_improvement,
     batch_monte_carlo_expected_improvement,
     bayesian_active_learning_by_disagreement,
     bichon_ranjan_criterion,
+    expected_hv_improvement,
     expected_improvement,
     gibbon_quality_term,
     gibbon_repulsion_term,
     hard_local_penalizer,
+    hippo_penalizer,
     integrated_variance_reduction,
     local_penalizer,
     lower_confidence_bound,
@@ -49,4 +52,10 @@ from .functional import (
     soft_local_penalizer,
 )
 from .greedy_batch import Fantasizer, LocalPenalization
+from .multi_objective import (
+    HIPPO,
+    BatchMonteCarloExpectedHypervolumeImprovement,
+    ExpectedConstrainedHypervolumeImprovement,
+    ExpectedHypervolumeImprovement,
+)
 from .utils import MultivariateNormalCDF, make_mvn_cdf, mvn_cdf

@@ -19,7 +19,7 @@ from typing import Callable, Mapping, Optional, Sequence
 import torch
 
 from ...data import Dataset
-from ...models.interfaces import HasReparamSampler, ProbabilisticModel
+from ...models.interfaces import HasReparamSampler, ModelStack, ProbabilisticModel
 from ...space import SearchSpace
 from ...types import Tag
 from ...utils.misc import new_generator
@@ -373,14 +373,18 @@ class _MonteCarloBuilder(SingleModelAcquisitionBuilder):
         self, model: ProbabilisticModel, dataset: Dataset, joint: bool, **sample_args
     ) -> Callable[[torch.Tensor], torch.Tensor]:
         """A sampling callable for ``model`` whose base draws freeze at its first call:
-        the model's own reparametrization sampler for joint samples over a batch, the
-        independent sampler for marginal ones."""
+        the model's own reparametrization sampler for joint samples over a batch (a model
+        stack's members' samplers side by side), the independent sampler for marginal
+        ones."""
         from ...models.gp.sampler import IndependentReparametrizationSampler
+        from ...models.stacks import StackReparametrizationSampler
 
         if not joint:
             sampler = IndependentReparametrizationSampler(self._sample_size, model)
         elif isinstance(model, HasReparamSampler):
             sampler = model.reparam_sampler(self._sample_size)
+        elif isinstance(model, ModelStack):
+            sampler = StackReparametrizationSampler(self._sample_size, model)
         else:
             raise ValueError(
                 "Monte-Carlo batch acquisition functions require a model with a "

@@ -3,8 +3,7 @@
 and returns the acquisition function itself, a :func:`functools.partial` of the same
 module-level function that the builder's function binds. The Monte-Carlo forms take a
 sample callable ``x -> samples`` whose base draws are fixed (a reparametrization
-sampler's bound ``sample``). The hypervolume forms and the HIPPO penalizer wait for the
-multi-objective port, MUMBO for the multifidelity models.
+sampler's bound ``sample``). MUMBO waits for the multifidelity models.
 """
 from __future__ import annotations
 
@@ -35,6 +34,7 @@ from .function import (
     _std,
 )
 from .greedy_batch import _hard_penalizer_fn, _penalized_fn, _soft_penalizer_fn
+from .multi_objective import _BatchEHVIWithLazyMasks, _ehvi_fn, _hippo_penalty_fn, _member_states
 
 PenalizedAcquisition = AcquisitionFunction
 """A base acquisition multiplied by a penalizer."""
@@ -162,3 +162,22 @@ def hard_local_penalizer(
 def local_penalizer(base: AcquisitionFunction, penalizer: AcquisitionFunction) -> AcquisitionFunction:
     """``base`` times ``penalizer``."""
     return partial(_penalized_fn, base, penalizer)
+
+
+def expected_hv_improvement(model, partition_bounds) -> AcquisitionFunction:
+    """Analytic EHVI over the cells ``(lower [K, M], upper [K, M])``."""
+    lower, upper = partition_bounds
+    return partial(_ehvi_fn, predictor(model), lower, upper)
+
+
+def batch_ehvi(sample: Callable, sampler_jitter: float, partition_bounds) -> AcquisitionFunction:
+    """qEHVI from a sample callable with fixed base draws over the cells
+    ``(lower, upper)``; ``sampler_jitter`` is the sampler's own and not read here."""
+    lower, upper = partition_bounds
+    return _BatchEHVIWithLazyMasks(sample, lower, upper)
+
+
+def hippo_penalizer(models, pending_points: torch.Tensor) -> AcquisitionFunction:
+    """HIPPO's correlation penalty against ``pending_points`` for an exact GP or a stack
+    of them."""
+    return partial(_hippo_penalty_fn, _member_states(models), pending_points)

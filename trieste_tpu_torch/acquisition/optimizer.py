@@ -45,7 +45,7 @@ NUM_RUNS_DIM = 10
 """L-BFGS runs per input dimension."""
 
 MAX_ITERS = 60
-"""Iterations of each L-BFGS run."""
+"""Iterations of each L-BFGS run, unless ``optimizer_args`` gives ``max_iters``."""
 
 AcquisitionOptimizer = Callable[..., torch.Tensor]
 """Maximizes an acquisition function (or a ``(function, V)`` vectorized pair) over a
@@ -169,10 +169,13 @@ def generate_continuous_optimizer(
     num_initial_samples: Optional[int] = None,
     num_optimization_runs: Optional[int] = None,
     num_recovery_runs: int = 10,
+    optimizer_args: Optional[dict] = None,
 ) -> AcquisitionOptimizer:
     """The default continuous optimizer. ``num_initial_samples`` defaults to
     ``max(5000, 1000·D)`` and ``num_optimization_runs`` to ``10·D``, per space at call
-    time."""
+    time; ``optimizer_args["max_iters"]`` sets the iterations of each run (default
+    :data:`MAX_ITERS`)."""
+    max_iters = (optimizer_args or {}).get("max_iters", MAX_ITERS)
 
     def optimize_continuous(
         space: SearchSpace, f: Vectorizable, generator: Optional[torch.Generator] = None
@@ -205,9 +208,9 @@ def generate_continuous_optimizer(
                 return space.sample(generator, N)[:, None, :].expand(N, V, D)
 
         points, values, improvement = _optimize_continuous_core(
-            acq, make_seeds(), lower, upper, R, MAX_ITERS, discrete_mask
+            acq, make_seeds(), lower, upper, R, max_iters, discrete_mask
         )
-        scalar("spo_af_evaluations", N + R * MAX_ITERS)
+        scalar("spo_af_evaluations", N + R * max_iters)
         deferred_scalar("spo_improvement_on_initial_samples", lambda: float(improvement.sum()))
 
         # recovery runs: retry with fresh seeds while no finite value was found
@@ -220,7 +223,7 @@ def generate_continuous_optimizer(
                 )
             recoveries += 1
             new_points, new_values, _ = _optimize_continuous_core(
-                acq, make_seeds(), lower, upper, R, MAX_ITERS, discrete_mask
+                acq, make_seeds(), lower, upper, R, max_iters, discrete_mask
             )
             replace = ~torch.isfinite(values) & torch.isfinite(new_values)
             points = torch.where(replace[:, None], new_points, points)

@@ -2,9 +2,9 @@
 :mod:`trieste_tpu.acquisition.rule`).
 
 The rule ABCs and the point-selection rules: :class:`EfficientGlobalOptimization`,
-:class:`RandomSampling`, :class:`DiscreteThompsonSampling` and the asynchronous rules.
-The trust-region rules and ``BatchHypervolumeSharpeRatioIndicator`` are not ported yet;
-:class:`LocalDatasetsAcquisitionRule` is here as the ABC they will implement.
+:class:`RandomSampling`, :class:`DiscreteThompsonSampling`, the asynchronous rules and
+:class:`BatchHypervolumeSharpeRatioIndicator` (qHSRI). The trust-region rules implement
+:class:`LocalDatasetsAcquisitionRule` in :mod:`.trust_region`.
 
 A rule with state follows the functional ``State`` protocol: ``acquire`` may return a
 callable ``state -> (state, points)``.
@@ -422,3 +422,95 @@ class AsynchronousGreedy(AcquisitionRule):
 
     def __repr__(self) -> str:
         return f"AsynchronousGreedy({self._builder!r}, {self._num_query_points!r})"
+
+
+class BatchHypervolumeSharpeRatioIndicator(AcquisitionRule):
+    """qHSRI: a batch drawn from the front of the model's (mean, −std) trade-off by a
+    Sharpe-ratio diverse subset. NSGA-II finds the front on the host, each population
+    predicted in one batch on the model's device; points unlikely to improve on the best
+    observation are filtered out first; the diverse subset's program is
+    :meth:`~.multi_objective.Pareto.sample_diverse_subset`."""
+
+    def __init__(
+        self,
+        num_query_points: int = 1,
+        ga_population_size: int = 100,
+        ga_n_generations: int = 50,
+        filter_threshold: float = 0.1,
+    ):
+        if num_query_points <= 0:
+            raise ValueError(f"num_query_points must be positive, got {num_query_points}")
+        if not 0.0 <= filter_threshold < 1.0:
+            raise ValueError(f"filter_threshold must be in [0, 1), got {filter_threshold}")
+        self._num_query_points = num_query_points
+        self._population_size = ga_population_size
+        self._n_generations = ga_n_generations
+        self._filter_threshold = filter_threshold
+
+    def _find_mean_std_front(
+        self, model: ProbabilisticModel, space: SearchSpace
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """NSGA-II over (mean, −std): the points of the trade-off between exploitation
+        and exploration, and their values ``[K, 2]``."""
+        from .multi_objective.nsga2 import nsga2
+
+        def objective(x: np.ndarray) -> np.ndarray:
+            with torch.no_grad():
+                mean, var = model.predict(
+                    torch.as_tensor(x, dtype=space.dtype, device=space.device)
+                )
+            std = torch.sqrt(torch.clamp_min(var, 1e-24))
+            return torch.cat([mean, -std], dim=-1).cpu().numpy()
+
+        return nsga2(
+            objective,
+            space.lower.cpu().numpy(),
+            space.upper.cpu().numpy(),
+            population_size=self._population_size,
+            num_generations=self._n_generations,
+        )
+
+    def acquire(
+        self,
+        search_space: SearchSpace,
+        models: Mapping[Tag, ProbabilisticModel],
+        datasets: Optional[Mapping[Tag, Dataset]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        from .multi_objective import Pareto
+
+        if models.keys() != {OBJECTIVE}:
+            raise ValueError(f"dict of models must contain the single key {OBJECTIVE!r}")
+        if datasets is None or OBJECTIVE not in datasets or len(datasets[OBJECTIVE]) == 0:
+            raise ValueError("qHSRI requires a non-empty objective dataset")
+        points, front = self._find_mean_std_front(models[OBJECTIVE], search_space)
+        means, stds = front[:, :1], -front[:, 1:]
+
+        # keep the points likely enough to improve on the best observation
+        eta = float(torch.min(datasets[OBJECTIVE].trimmed_observations))
+        pi = torch.special.ndtr(torch.as_tensor((eta - means) / stds)).numpy()[:, 0]
+        keep = pi >= self._filter_threshold
+        if keep.sum() < self._num_query_points:
+            keep = np.argsort(-pi)[: max(self._num_query_points, 5)]
+        points, means, stds = points[keep], means[keep], stds[keep]
+
+        front_vals = np.concatenate([means, -stds], axis=-1)
+        pareto = Pareto(torch.as_tensor(front_vals))
+        _, counts = pareto.sample_diverse_subset(self._num_query_points, allow_repeats=True)
+        # each sampled front row back to its query point
+        chosen: list = []
+        for row, count in zip(pareto.front.numpy(), counts.numpy()):
+            if count > 0:
+                idx = int(np.argmin(np.linalg.norm(front_vals - row[None, :], axis=-1)))
+                chosen.extend([points[idx]] * int(count))
+        return torch.as_tensor(
+            np.stack(chosen[: self._num_query_points]), dtype=search_space.dtype,
+            device=search_space.device,
+        )
+
+    def __repr__(self) -> str:
+        return (
+            f"BatchHypervolumeSharpeRatioIndicator({self._num_query_points!r}, "
+            f"{self._population_size!r}, {self._n_generations!r}, "
+            f"{self._filter_threshold!r})"
+        )

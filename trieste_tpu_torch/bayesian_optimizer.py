@@ -269,15 +269,21 @@ class BayesianOptimizer:
                 ):
                     break
                 if track_state:
-                    record = Record(
-                        copy.deepcopy(datasets), copy.deepcopy(models),
-                        copy.deepcopy(acquisition_state),
-                    )
-                    if track_path is None:
-                        history.append(record)
-                    else:
-                        filename = OptimizationResult.step_filename(step, num_steps)
-                        history.append(record.save(Path(track_path) / filename))
+                    try:
+                        record = Record(
+                            copy.deepcopy(datasets), copy.deepcopy(models),
+                            copy.deepcopy(acquisition_state),
+                        )
+                        if track_path is None:
+                            history.append(record)
+                        else:
+                            filename = OptimizationResult.step_filename(step, num_steps)
+                            history.append(record.save(Path(track_path) / filename))
+                    except Exception as e:
+                        raise NotImplementedError(
+                            "Failed to save the optimization state; pass "
+                            "track_state=False to disable tracking"
+                        ) from e
 
                 with Timer() as step_timer:
                     with Timer() as acquire_timer:

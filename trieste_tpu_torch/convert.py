@@ -6,7 +6,7 @@ arrays here, so that both packages compute on the same parameters and data.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Union
+from typing import Any, Mapping, Optional, Sequence, Tuple, Type, Union
 
 import numpy as np
 import torch
@@ -24,9 +24,11 @@ from .acquisition.trust_region import (
     UpdatableTrustRegionProduct,
 )
 from .data import Dataset
+from .models.gp.gpr import GaussianProcessRegression
 from .models.gp.posterior import GPRCache, GPRParams
 from .models.gp.priors import GPPriors
 from .models.gp.sampler import DecoupledTrajectory, FourierFeatures, RFFTrajectory
+from .models.interfaces import ModelStack, TrainableModelStack
 from .ops.kernels import stationary
 
 Device = Union[str, torch.device]
@@ -71,6 +73,32 @@ def dataset_from_numpy(
     obs = _tensor(observations, device, dtype)
     n = int(num_points)
     return Dataset.from_arrays(qp[:n], obs[:n], capacity=capacity or qp.shape[0])
+
+
+def model_stack_from_numpy(
+    members: Sequence[Tuple[Mapping[str, Any], Mapping[str, Any], int]],
+    *,
+    stack_type: Type[ModelStack] = TrainableModelStack,
+    device: Device = "cuda",
+    dtype: Optional[torch.dtype] = None,
+    **model_kwargs,
+) -> ModelStack:
+    """A stack of exact GPs from numpy: each member is ``(params, dataset, event_size)``,
+    with ``params`` the keyword arguments of :func:`gpr_params_from_numpy` and ``dataset``
+    those of :func:`dataset_from_numpy`. ``stack_type`` picks the stack
+    (:class:`TrainableModelStack`, or a joint, predict-y or reparam-sampler variant);
+    ``model_kwargs`` go to every :class:`GaussianProcessRegression`."""
+    return stack_type(*[
+        (
+            GaussianProcessRegression(
+                gpr_params_from_numpy(**params, device=device, dtype=dtype),
+                dataset_from_numpy(**dataset, device=device, dtype=dtype),
+                **model_kwargs,
+            ),
+            int(event_size),
+        )
+        for params, dataset, event_size in members
+    ])
 
 
 def priors_from_numpy(

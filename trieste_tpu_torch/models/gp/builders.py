@@ -58,6 +58,7 @@ def build_gpr(
     likelihood_variance: Optional[float] = None,
     trainable_likelihood: bool = False,
     num_kernel_samples: int = 10,
+    num_rff_features: int = 1000,
     optimize_generator: Optional[torch.Generator] = None,
 ) -> GaussianProcessRegression:
     """A :class:`GaussianProcessRegression` with a Matérn-5/2 ARD kernel scaled to the
@@ -72,6 +73,7 @@ def build_gpr(
         dataset,
         num_kernel_samples=num_kernel_samples,
         train_noise=trainable_likelihood,
+        num_rff_features=num_rff_features,
         optimize_generator=optimize_generator,
         priors=priors,
     )

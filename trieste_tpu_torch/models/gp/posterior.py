@@ -113,18 +113,9 @@ def _predict_f_flat_reference(
     return mean, var[:, None].expand(mean.shape)
 
 
-def _predict_f_flat_impl(
-    params: GPRParams, cache: GPRCache, flat: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The fused kernel for large candidate pools, the exact path otherwise."""
-    if fused_predict.can_fuse(params, cache, flat):
-        return fused_predict.fused_predict_f(params, cache, flat)
-    return _predict_f_flat_reference(params, cache, flat)
-
-
 class _PredictFFlat(torch.autograd.Function):
-    """Forward as :func:`_predict_f_flat_impl`; backward the VJP of the exact reference,
-    recomputed (the fused kernel is forward-only)."""
+    """Forward by the fused kernel; backward the VJP of the exact reference, recomputed
+    (the kernel is forward-only)."""
 
     @staticmethod
     def forward(ctx, kind, mask, LinvT, flat, variance, lengthscales, noise, mean_constant,
@@ -134,7 +125,7 @@ class _PredictFFlat(torch.autograd.Function):
         ctx.kind = kind
         ctx.save_for_backward(mask, flat, variance, lengthscales, noise, mean_constant, X, L,
                               alpha)
-        return _predict_f_flat_impl(params, cache, flat)
+        return fused_predict.fused_predict_f(params, cache, flat)
 
     @staticmethod
     def backward(ctx, grad_mean, grad_var):
@@ -161,8 +152,12 @@ def _unpack(kind, mask, LinvT, variance, lengthscales, noise, mean_constant, X, 
 def predict_f(
     params: GPRParams, cache: GPRCache, query_points: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Marginal posterior: ``[..., D] -> mean [..., P], var [..., P]``."""
+    """Marginal posterior: ``[..., D] -> mean [..., P], var [..., P]``: the fused kernel
+    for large candidate pools, the exact path (differentiated as it runs) otherwise."""
     flat, unflatten = flatten_leading_dims(query_points, output_dims=2)
+    if not fused_predict.can_fuse(params, cache, flat):
+        mean, var = _predict_f_flat_reference(params, cache, flat)
+        return unflatten(mean), unflatten(var)
     k = params.kernel
     mean, var = _PredictFFlat.apply(
         k.kind, cache.mask, cache.LinvT, flat, k.variance, k.lengthscales,

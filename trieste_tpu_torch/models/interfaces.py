@@ -1,15 +1,18 @@
 """Probabilistic-model protocols and the sampler base classes (counterpart of
 :mod:`trieste_tpu.models.interfaces`). Acquisition builders ask for intersections of these
 capabilities. Random sampling takes an explicit ``torch.Generator`` on the data's device.
-The model stacks are not ported yet."""
+
+A model stack joins independent models, each over its own slice of the outputs, into one
+multi-output model: it predicts member by member and concatenates on the last axis."""
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Any, Callable, Optional, Protocol, Tuple, runtime_checkable
+from typing import Any, Callable, Optional, Protocol, Sequence, Tuple, runtime_checkable
 
 import torch
 
 from ..data import Dataset
+from ..utils.misc import generator_for
 
 
 @runtime_checkable
@@ -189,3 +192,96 @@ class HasTrajectorySampler(ProbabilisticModel, Protocol):
 class HasReparamSampler(ProbabilisticModel, Protocol):
     def reparam_sampler(self, num_samples: int) -> ReparametrizationSampler:
         raise NotImplementedError
+
+
+class ModelStack:
+    """Independent models over disjoint slices of the outputs, as one multi-output model.
+    Each member is given with its event size (its number of outputs)."""
+
+    def __init__(
+        self,
+        model_with_event_size: Tuple[ProbabilisticModel, int],
+        *models_with_event_sizes: Tuple[ProbabilisticModel, int],
+    ):
+        pairs = [model_with_event_size, *models_with_event_sizes]
+        self._models: Sequence[ProbabilisticModel] = [m for m, _ in pairs]
+        self._event_sizes: Sequence[int] = [s for _, s in pairs]
+
+    @property
+    def models(self) -> Sequence[ProbabilisticModel]:
+        return self._models
+
+    @property
+    def event_sizes(self) -> Sequence[int]:
+        return self._event_sizes
+
+    def predict(self, query_points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The members' marginal means and variances, concatenated on the last axis."""
+        means, vars_ = zip(*[m.predict(query_points) for m in self._models])
+        return torch.cat(means, dim=-1), torch.cat(vars_, dim=-1)
+
+    def sample(
+        self, generator: Optional[torch.Generator], query_points: torch.Tensor, num_samples: int
+    ) -> torch.Tensor:
+        """Joint samples ``[..., S, B, L]``; the members draw in order from ``generator``."""
+        generator = generator_for(generator, query_points.device)
+        return torch.cat(
+            [m.sample(generator, query_points, num_samples) for m in self._models], dim=-1
+        )
+
+    def log(self, dataset: Optional[Dataset] = None) -> None:
+        for m in self._models:
+            m.log(dataset)
+
+    def _split_observations(self, observations: torch.Tensor) -> Sequence[torch.Tensor]:
+        return torch.split(observations, list(self._event_sizes), dim=-1)
+
+
+class TrainableModelStack(ModelStack):
+    """A stack of trainable models: each member is updated and trained on its own slice of
+    the observations, at the query points of the dataset."""
+
+    def _member_datasets(self, dataset: Dataset) -> Sequence[Dataset]:
+        qp = dataset.trimmed_query_points
+        return [
+            Dataset.from_arrays(qp, obs)
+            for obs in self._split_observations(dataset.trimmed_observations)
+        ]
+
+    def update(self, dataset: Dataset) -> None:
+        for m, data in zip(self._models, self._member_datasets(dataset)):
+            m.update(data)
+
+    def optimize(self, dataset: Dataset) -> None:
+        for m, data in zip(self._models, self._member_datasets(dataset)):
+            m.optimize(data)
+
+
+class PredictJointModelStack(ModelStack):
+    """A stack with joint predictions: means concatenate on the last axis, the (block
+    diagonal) covariances ``[..., L, B, B]`` on axis −3."""
+
+    def predict_joint(self, query_points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        means, covs = zip(*[m.predict_joint(query_points) for m in self._models])
+        return torch.cat(means, dim=-1), torch.cat(covs, dim=-3)
+
+
+class PredictYModelStack(ModelStack):
+    """A stack that predicts observations, each member with its own noise."""
+
+    def predict_y(self, query_points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        means, vars_ = zip(*[m.predict_y(query_points) for m in self._models])
+        return torch.cat(means, dim=-1), torch.cat(vars_, dim=-1)
+
+
+class TrainablePredictJointModelStack(TrainableModelStack, PredictJointModelStack):
+    """A trainable stack with joint predictions."""
+
+
+class HasReparamSamplerModelStack(ModelStack):
+    """A stack whose members all have reparametrization samplers."""
+
+    def reparam_sampler(self, num_samples: int) -> ReparametrizationSampler:
+        from .stacks import StackReparametrizationSampler
+
+        return StackReparametrizationSampler(num_samples, self)

@@ -1,5 +1,6 @@
 """Single-objective benchmark problems (counterpart of
-:mod:`trieste_tpu.objectives.single_objectives`): Branin, ScaledBranin and Hartmann6.
+:mod:`trieste_tpu.objectives.single_objectives`): Branin, ScaledBranin, Hartmann6 and
+SimpleQuadratic.
 
 The problems' search spaces live on ``cuda``; ``problem.search_space.to("cpu")`` gives the
 same box on the CPU.
@@ -125,4 +126,20 @@ Hartmann6 = SingleObjectiveTestProblem(
     search_space=Box([0.0] * 6, [1.0] * 6),
     minimizers=np.array([[0.20169, 0.150011, 0.476874, 0.275332, 0.311652, 0.6573]]),
     minimum=np.array([-3.32237]),
+)
+
+
+def _simple_quadratic_raw(x: torch.Tensor) -> torch.Tensor:
+    return -torch.sum(torch.square(x), dim=-1)
+
+
+simple_quadratic = _as_objective(_simple_quadratic_raw)
+"""The negated sum of squares on the unit square: its minimum is at the corner (1, 1)."""
+
+SimpleQuadratic = SingleObjectiveTestProblem(
+    name="Simple Quadratic",
+    objective=simple_quadratic,
+    search_space=Box([0.0, 0.0], [1.0, 1.0]),
+    minimizers=np.array([[1.0, 1.0]]),
+    minimum=np.array([-2.0]),
 )

@@ -16,6 +16,11 @@ def mk_observer(objective: Callable[[torch.Tensor], torch.Tensor]) -> SingleObse
     return lambda qp: Dataset.from_arrays(qp, objective(qp))
 
 
+def mk_multi_observer(**kwargs: Callable[[torch.Tensor], torch.Tensor]) -> MultiObserver:
+    """An observer of one dataset per keyword, each from its own objective."""
+    return lambda qp: {key: Dataset.from_arrays(qp, obj(qp)) for key, obj in kwargs.items()}
+
+
 def mk_batch_observer(
     objective_or_observer: Union[Callable[[torch.Tensor], torch.Tensor], Observer],
     default_key: Tag = OBJECTIVE,
