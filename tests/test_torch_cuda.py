@@ -536,3 +536,87 @@ def test_non_dominated_mask_on_the_card_matches_the_cpu(device):
     assert torch.equal(got.cpu(), non_dominated_mask(obs.cpu()))
     front, mask = non_dominated(obs)
     assert front.is_cuda and torch.equal(front.cpu(), obs.cpu()[mask.cpu()])
+
+
+def _constrained_box(device, dtype=torch.float32):
+    from trieste_tpu_torch.space import Box, LinearConstraint, NonlinearConstraint
+
+    disk = NonlinearConstraint(
+        lambda x: torch.sqrt(torch.sum(torch.square(x - 0.5), dim=-1)) - 0.4, -100.0, 0.0)
+    band = LinearConstraint(torch.tensor([[1.0, -1.0]]), -0.3, 0.3)
+    return Box([0.0, 0.0], [1.0, 1.0], [disk, band], dtype=dtype, device=device)
+
+
+def test_constraints_on_the_card_match_the_cpu(device):
+    """Residuals and feasibility on the card against the CPU's on the same points, and the
+    feasible sampler's points there: feasible, on the box's device and dtype, the first
+    ``n`` feasible of its draws."""
+    box = _constrained_box(device)
+    x = torch.rand(4096, 2, generator=torch.Generator().manual_seed(0))
+    cpu = _constrained_box("cpu")
+    torch.testing.assert_close(box.constraints_residuals(x.to(device)).cpu(),
+                               cpu.constraints_residuals(x), rtol=1e-6, atol=1e-6)
+    assert torch.equal(box.is_feasible(x.to(device)).cpu(), cpu.is_feasible(x))
+    assert box.constraints[1].A.device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(1)
+    points = box.sample_feasible(gen, 5000)
+    assert points.shape == (5000, 2) and points.device.type == "cuda"
+    assert points.dtype == torch.float32 and bool(box.is_feasible(points).all())
+    # the same draws, filtered on the CPU
+    replay = torch.Generator(device=device).manual_seed(1)
+    draws = torch.cat([box.sample(replay, 5000) for _ in range(8)]).cpu()
+    torch.testing.assert_close(points.cpu(), draws[cpu.is_feasible(draws)][:5000])
+
+
+def test_constrained_optimizer_point_is_feasible_on_the_card(device):
+    from trieste_tpu_torch.acquisition.optimizer import generate_continuous_optimizer
+
+    box = _constrained_box(device)
+    opt = generate_continuous_optimizer(num_initial_samples=4096, num_optimization_runs=16)
+    point = opt(box, lambda x: -torch.sum((x[..., 0, :] - 0.95) ** 2, dim=-1, keepdim=True),
+                generator=torch.Generator(device=device).manual_seed(2))
+    assert point.device.type == "cuda" and bool(box.is_feasible(point).all())
+
+
+def _sparse_pair(device, model):
+    """The same sparse model in fp64 on the CPU and in fp32 on the card."""
+    from trieste_tpu_torch.data import Dataset
+    from trieste_tpu_torch.models.gp import sparse as tsp
+    from trieste_tpu_torch.ops.kernels import stationary as stat
+
+    g = torch.Generator().manual_seed(3)
+    X = torch.rand(300, 3, generator=g, dtype=torch.float64)
+    Y = torch.sin(3.0 * X[:, :1]) + X[:, 1:2] * X[:, 2:]
+    Z = torch.rand(40, 3, generator=g, dtype=torch.float64)
+    made = []
+    for dev, dtype in (("cpu", torch.float64), (device, torch.float32)):
+        to = lambda t: t.to(device=dev, dtype=dtype)  # noqa: E731
+        kernel = stat("matern52", 0.8, [0.4, 0.5, 0.6], dtype=dtype, device=dev)
+        noise, mean = to(torch.tensor(1e-3)), to(torch.tensor(0.1))
+        data = Dataset.from_arrays(to(X), to(Y))
+        if model == "sgpr":
+            made.append(tsp.SparseGaussianProcessRegression(
+                tsp.SGPRParams(kernel, noise, mean, to(Z)), data))
+        else:
+            q = tsp.svgp_optimal_variational(
+                tsp.SVGPParams(kernel, noise, mean, to(Z), to(torch.zeros(40, 1)),
+                               to(torch.eye(40)[None])),
+                data.query_points, data.observations, data.mask)
+            made.append(tsp.SparseVariational(q, data))
+    return made
+
+
+@pytest.mark.parametrize("model", ["sgpr", "svgp"])
+def test_sparse_predictions_in_fp32_on_the_card_match_fp64_on_the_cpu(device, model):
+    """Within the contract of the fused kernel's variance (mean rtol 1e-3 / atol 3e-4,
+    variance rtol 5e-3 / atol 3e-4)."""
+    cpu, card = _sparse_pair(device, model)
+    x = torch.rand(2000, 3, generator=torch.Generator().manual_seed(4), dtype=torch.float64)
+    mean, var = card.predict(x.to(device, torch.float32))
+    want_mean, want_var = cpu.predict(x)
+    torch.testing.assert_close(mean.cpu().double(), want_mean, **MEAN_TOL)
+    torch.testing.assert_close(var.cpu().double(), want_var, **VAR_TOL)
+    jmean, jcov = card.predict_joint(x[:12].reshape(3, 4, 3).to(device, torch.float32))
+    wmean, wcov = cpu.predict_joint(x[:12].reshape(3, 4, 3))
+    torch.testing.assert_close(jmean.cpu().double(), wmean, **MEAN_TOL)
+    torch.testing.assert_close(jcov.cpu().double(), wcov, **VAR_TOL)

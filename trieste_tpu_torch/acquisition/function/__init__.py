@@ -17,6 +17,7 @@ from .function import (
     BatchMonteCarloExpectedImprovement,
     ExpectedConstrainedImprovement,
     ExpectedImprovement,
+    FastConstraintsFeasibility,
     MakePositive,
     MonteCarloAugmentedExpectedImprovement,
     MonteCarloExpectedImprovement,
@@ -25,6 +26,7 @@ from .function import (
     NegativePredictiveMean,
     ProbabilityOfFeasibility,
     ProbabilityOfImprovement,
+    fast_constraints_feasibility,
 )
 from .functional import (
     PenalizedAcquisition,

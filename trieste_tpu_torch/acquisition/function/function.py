@@ -290,6 +290,54 @@ class ExpectedConstrainedImprovement(AcquisitionFunctionBuilder):
         )
 
 
+def _smooth_feasibility(residuals: torch.Tensor) -> torch.Tensor:
+    """The default smoothing of :class:`FastConstraintsFeasibility`: ``Φ(r / 1e-3)``."""
+    return torch.special.ndtr(residuals / 1e-3)
+
+
+def _fast_constraints_feasibility_fn(
+    search_space: SearchSpace, smooth: Callable, x: torch.Tensor
+) -> torch.Tensor:
+    residuals = search_space.constraints_residuals(x[..., 0, :])
+    return torch.prod(smooth(residuals), dim=-1, keepdim=True)
+
+
+def fast_constraints_feasibility(
+    search_space: SearchSpace, smoothing_function: Optional[Callable] = None
+) -> AcquisitionFunction:
+    """Feasibility from the space's own constraint residuals: the product over them of
+    ``smoothing_function`` (default ``Φ(r / 1e-3)``); no model is needed."""
+    if not getattr(search_space, "has_constraints", False):
+        raise NotImplementedError("search space has no constraints")
+    return partial(
+        _fast_constraints_feasibility_fn, search_space, smoothing_function or _smooth_feasibility
+    )
+
+
+class FastConstraintsFeasibility(SingleModelAcquisitionBuilder):
+    """:func:`fast_constraints_feasibility` as a builder: the function ignores the model
+    and the data, and an update keeps it."""
+
+    def __init__(self, search_space: SearchSpace, smoothing_function: Optional[Callable] = None):
+        self._fn = fast_constraints_feasibility(search_space, smoothing_function)
+
+    def prepare_acquisition_function(
+        self, model: ProbabilisticModel, dataset: Optional[Dataset] = None
+    ) -> AcquisitionFunction:
+        return self._fn
+
+    def update_acquisition_function(
+        self,
+        function: AcquisitionFunction,
+        model: ProbabilisticModel,
+        dataset: Optional[Dataset] = None,
+    ) -> AcquisitionFunction:
+        return function
+
+    def __repr__(self) -> str:
+        return "FastConstraintsFeasibility()"
+
+
 class MakePositive(SingleModelAcquisitionBuilder):
     """Softplus of another acquisition, for callers that assume positive values (the
     base of :class:`~.greedy_batch.LocalPenalization`)."""

@@ -28,6 +28,7 @@ from .function import (
     _batch_mc_ei_fn,
     _ei_fn,
     _mc_aei_fn,
+    fast_constraints_feasibility,
     _mc_ei_fn,
     _monlcb_fn_spread,
     _poi_fn,

@@ -9,8 +9,10 @@ up to ``num_recovery_runs`` times before :class:`FailedOptimizationError`.
 Over a :class:`TaggedMultiSearchSpace` (a trust-region fleet) each slice draws its seeds
 and keeps its bounds in its own region. Over a space with discrete parts (a tagged
 product) the optimization is relaxed: each run keeps the discrete coordinates of its
-start, frozen by bounds of zero width that differ from run to run. A discrete space is
-searched exhaustively.
+start, frozen by bounds of zero width that differ from run to run. Over a box with
+constraints the seeds are feasible samples, an infeasible seed or run never wins, and the
+runs minimize the acquisition with an exact-penalty term ``weight · Σ relu(−r)²`` on the
+constraints' residuals ``r``. A discrete space is searched exhaustively.
 
 >>> from trieste_tpu_torch.space import DiscreteSearchSpace
 >>> space = DiscreteSearchSpace(torch.tensor([[0.0], [1.0], [2.0]]))
@@ -105,6 +107,10 @@ def _space_bounds_and_discrete_mask(
     return space.lower, space.upper, mask.to(space.device)
 
 
+def _feasible(residual_fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    return torch.all(residual_fn(x) >= -1e-7, dim=-1)
+
+
 def _optimize_continuous_core(
     acq: Callable[[torch.Tensor], torch.Tensor],
     seeds: torch.Tensor,  # [N, V, D]
@@ -113,15 +119,21 @@ def _optimize_continuous_core(
     num_runs: int,
     max_iters: int,
     discrete_mask: Optional[torch.Tensor] = None,  # [D] bool
+    residual_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Seed scoring → top-k starts → lockstep multi-start L-BFGS → winner per slice over
     runs and seeds. ``acq`` maps ``[..., V, D] -> [..., V]``. The dimensions under
     ``discrete_mask`` keep each run's start: their bounds collapse to it, run by run.
-    Returns ``(points [V, D], values [V], improvement over the best seed [V])``."""
+    ``residual_fn`` (``[..., D] -> [..., n_res]``, feasible iff every residual is >= 0)
+    makes the search constraint-aware: infeasible seeds and runs score ``-inf`` and the
+    runs carry the exact penalty. Returns ``(points [V, D], values [V], improvement over
+    the best seed [V])``."""
     N, V, D = seeds.shape
     with torch.no_grad():
         seed_vals = acq(seeds)  # [N, V]
-    seed_vals = torch.where(torch.isfinite(seed_vals), seed_vals, -torch.inf)
+        seed_vals = torch.where(torch.isfinite(seed_vals), seed_vals, -torch.inf)
+        if residual_fn is not None:
+            seed_vals = torch.where(_feasible(residual_fn, seeds), seed_vals, -torch.inf)
     top_vals, top_idx = torch.topk(seed_vals.T, num_runs, dim=-1)  # [V, R]
     # starts[r] holds, for every slice v, that slice's r-th best seed
     starts = torch.gather(seeds.transpose(0, 1), 1, top_idx[..., None].expand(V, num_runs, D))
@@ -134,10 +146,17 @@ def _optimize_continuous_core(
     slice_scale = torch.clamp(
         ref_mag / torch.maximum(magnitudes, 1e-12 * torch.clamp_min(ref_mag, 1e-300)), 1.0, 1e6
     )
+    # large against the scaled acquisition, so that a violation always loses, and finite,
+    # so that the gradient pulls a violating run back inside
+    penalty_weight = 100.0 * (1.0 + magnitudes * slice_scale)  # [V]
 
     def neg_sum_acq(xflat: torch.Tensor) -> torch.Tensor:  # [R, V*D] -> [R]
         x = xflat.reshape(-1, V, D)
-        return -torch.sum(acq(x) * slice_scale, dim=-1)
+        value = torch.sum(acq(x) * slice_scale, dim=-1)
+        if residual_fn is not None:
+            violation = torch.square(torch.relu(-residual_fn(x))).sum(dim=-1)  # [R, V]
+            value = value - torch.sum(penalty_weight * violation, dim=-1)
+        return -value
 
     if discrete_mask is None:
         discrete_mask = torch.zeros(D, dtype=torch.bool, device=seeds.device)
@@ -150,7 +169,9 @@ def _optimize_continuous_core(
     opt_points = res.x.reshape(num_runs, V, D)
     with torch.no_grad():
         opt_vals = acq(opt_points)  # [R, V]
-    opt_vals = torch.where(torch.isfinite(opt_vals), opt_vals, -torch.inf)
+        opt_vals = torch.where(torch.isfinite(opt_vals), opt_vals, -torch.inf)
+        if residual_fn is not None:
+            opt_vals = torch.where(_feasible(residual_fn, opt_points), opt_vals, -torch.inf)
 
     slices = torch.arange(V, device=seeds.device)
     best_run = torch.argmax(opt_vals, dim=0)  # [V]
@@ -203,12 +224,14 @@ def generate_continuous_optimizer(
         else:
             lower_d, upper_d, discrete_mask = _space_bounds_and_discrete_mask(space)
             lower, upper = lower_d.expand(V, D), upper_d.expand(V, D)
+            draw = space.sample_feasible if space.has_constraints else space.sample
 
             def make_seeds() -> torch.Tensor:  # every slice starts from the same pool
-                return space.sample(generator, N)[:, None, :].expand(N, V, D)
+                return draw(generator, N)[:, None, :].expand(N, V, D)
 
+        residual_fn = space.constraints_residuals if space.has_constraints else None
         points, values, improvement = _optimize_continuous_core(
-            acq, make_seeds(), lower, upper, R, max_iters, discrete_mask
+            acq, make_seeds(), lower, upper, R, max_iters, discrete_mask, residual_fn
         )
         scalar("spo_af_evaluations", N + R * max_iters)
         deferred_scalar("spo_improvement_on_initial_samples", lambda: float(improvement.sum()))
@@ -223,7 +246,7 @@ def generate_continuous_optimizer(
                 )
             recoveries += 1
             new_points, new_values, _ = _optimize_continuous_core(
-                acq, make_seeds(), lower, upper, R, max_iters, discrete_mask
+                acq, make_seeds(), lower, upper, R, max_iters, discrete_mask, residual_fn
             )
             replace = ~torch.isfinite(values) & torch.isfinite(new_values)
             points = torch.where(replace[:, None], new_points, points)

@@ -28,8 +28,10 @@ from .models.gp.gpr import GaussianProcessRegression
 from .models.gp.posterior import GPRCache, GPRParams
 from .models.gp.priors import GPPriors
 from .models.gp.sampler import DecoupledTrajectory, FourierFeatures, RFFTrajectory
+from .models.gp.sparse import SGPRParams, SVGPParams
 from .models.interfaces import ModelStack, TrainableModelStack
 from .ops.kernels import stationary
+from .space import Box, Constraint, LinearConstraint
 
 Device = Union[str, torch.device]
 
@@ -56,6 +58,66 @@ def gpr_params_from_numpy(
         noise_variance=_tensor(noise_variance, device, variance.dtype),
         mean_constant=_tensor(mean_constant, device, variance.dtype),
     )
+
+
+def sgpr_params_from_numpy(
+    kind: str,
+    variance,
+    lengthscales,
+    noise_variance,
+    mean_constant,
+    inducing_points,
+    *,
+    device: Device = "cuda",
+    dtype: Optional[torch.dtype] = None,
+) -> SGPRParams:
+    """:class:`SGPRParams` from numpy values (inducing points ``[M, D]``)."""
+    base = gpr_params_from_numpy(kind, variance, lengthscales, noise_variance, mean_constant,
+                                 device=device, dtype=dtype)
+    return SGPRParams(kernel=base.kernel, noise_variance=base.noise_variance,
+                      mean_constant=base.mean_constant,
+                      inducing_points=_tensor(inducing_points, device, base.kernel.variance.dtype))
+
+
+def svgp_params_from_numpy(
+    kind: str,
+    variance,
+    lengthscales,
+    noise_variance,
+    mean_constant,
+    inducing_points,
+    q_mu,
+    q_sqrt,
+    *,
+    device: Device = "cuda",
+    dtype: Optional[torch.dtype] = None,
+) -> SVGPParams:
+    """:class:`SVGPParams` from numpy values (``q_mu [M, P]``, ``q_sqrt [P, M, M]``)."""
+    base = sgpr_params_from_numpy(kind, variance, lengthscales, noise_variance, mean_constant,
+                                  inducing_points, device=device, dtype=dtype)
+    like = base.inducing_points
+    return SVGPParams(kernel=base.kernel, noise_variance=base.noise_variance,
+                      mean_constant=base.mean_constant, inducing_points=like,
+                      q_mu=_tensor(q_mu, device, like.dtype), q_sqrt=_tensor(q_sqrt, device, like.dtype))
+
+
+def linear_constraint_from_numpy(A, lb, ub) -> LinearConstraint:
+    """A :class:`LinearConstraint` from the numpy values of the JAX package's ``A``, ``lb``
+    and ``ub`` (a box it is given to moves it to its own device and dtype)."""
+    return LinearConstraint(np.array(A), np.array(lb), np.array(ub))
+
+
+def box_from_numpy(
+    lower,
+    upper,
+    constraints: Sequence[Constraint] = (),
+    *,
+    device: Device = "cuda",
+    dtype: Optional[torch.dtype] = None,
+) -> Box:
+    """A :class:`Box` from numpy bounds with the port's constraints (a nonlinear
+    constraint's function cannot cross packages: its torch twin is written by hand)."""
+    return Box(np.asarray(lower), np.asarray(upper), list(constraints), dtype=dtype, device=device)
 
 
 def dataset_from_numpy(

@@ -1,5 +1,6 @@
 """Model builders with data- and space-scaled defaults (counterpart of
-:mod:`trieste_tpu.models.gp.builders`)."""
+:mod:`trieste_tpu.models.gp.builders`): the exact GP and the two sparse GPs, whose
+inducing points start at k-means centroids of the data."""
 from __future__ import annotations
 
 import math
@@ -13,6 +14,13 @@ from ...space import SearchSpace
 from .gpr import GaussianProcessRegression
 from .posterior import GPRParams
 from .priors import KERNEL_PRIOR_SCALE, default_priors
+from .sparse import SGPRParams, SparseGaussianProcessRegression, SparseVariational, SVGPParams
+
+NUM_INDUCING_POINTS_PER_DIM = 25
+"""Default inducing points per input dimension."""
+
+MAX_NUM_INDUCING_POINTS = 500
+"""Cap on the default number of inducing points."""
 
 SIGNAL_NOISE_RATIO_LIKELIHOOD = 10.0
 """Signal-to-noise ratio that sets the default likelihood variance."""
@@ -76,4 +84,101 @@ def build_gpr(
         num_rff_features=num_rff_features,
         optimize_generator=optimize_generator,
         priors=priors,
+    )
+
+
+def _initial_inducing_points(
+    dataset: Dataset, search_space: SearchSpace, num_inducing_points: Optional[int], seed: int
+) -> torch.Tensor:
+    """K-means centroids of the data (a padded random subsample if it is too small), from
+    a generator seeded ``seed`` on the data's device."""
+    from .inducing_points import KMeansInducingPointSelector
+
+    M = num_inducing_points or min(
+        NUM_INDUCING_POINTS_PER_DIM * search_space.dimension, MAX_NUM_INDUCING_POINTS
+    )
+    generator = torch.Generator(device=dataset.device).manual_seed(seed)
+    return KMeansInducingPointSelector(generator=generator)._recalculate_inducing_points(
+        M, None, dataset
+    )
+
+
+def build_sgpr(
+    dataset: Dataset,
+    search_space: SearchSpace,
+    *,
+    kernel_kind: str = MATERN52,
+    kernel_priors: bool = True,
+    likelihood_variance: Optional[float] = None,
+    trainable_likelihood: bool = False,
+    num_inducing_points: Optional[int] = None,
+    trainable_inducing: bool = True,
+    inducing_point_selector: Optional[object] = None,
+    optimize_generator: Optional[torch.Generator] = None,
+) -> SparseGaussianProcessRegression:
+    """A :class:`SparseGaussianProcessRegression` with the kernel, priors and noise of
+    :func:`build_gpr` and ``min(25·D, 500)`` inducing points (or ``num_inducing_points``)
+    at k-means centroids of the data (generator seeded 7)."""
+    base = default_gpr_params(
+        dataset, search_space, kernel_kind=kernel_kind, likelihood_variance=likelihood_variance
+    )
+    params = SGPRParams(
+        kernel=base.kernel,
+        noise_variance=base.noise_variance,
+        mean_constant=base.mean_constant,
+        inducing_points=_initial_inducing_points(dataset, search_space, num_inducing_points, 7),
+    )
+    return SparseGaussianProcessRegression(
+        params,
+        dataset,
+        inducing_point_selector=inducing_point_selector,
+        train_noise=trainable_likelihood,
+        train_inducing=trainable_inducing,
+        optimize_generator=optimize_generator,
+        priors=default_priors(base.kernel, KERNEL_PRIOR_SCALE) if kernel_priors else None,
+    )
+
+
+def build_svgp(
+    dataset: Dataset,
+    search_space: SearchSpace,
+    *,
+    kernel_kind: str = MATERN52,
+    kernel_priors: bool = True,
+    likelihood_variance: Optional[float] = None,
+    trainable_likelihood: bool = False,
+    num_inducing_points: Optional[int] = None,
+    inducing_point_selector: Optional[object] = None,
+    optimize_generator: Optional[torch.Generator] = None,
+    minibatch_size: Optional[int] = None,
+    minibatch_iters: int = 500,
+    learning_rate: float = 0.05,
+) -> SparseVariational:
+    """A :class:`SparseVariational` SVGP with the kernel, priors and noise of
+    :func:`build_gpr`, inducing points as :func:`build_sgpr` places them (generator seeded
+    9), ``q_mu = 0`` and ``q_sqrt = I``. ``minibatch_size`` selects Adam on minibatches of
+    that size for ``minibatch_iters`` steps, for large data."""
+    base = default_gpr_params(
+        dataset, search_space, kernel_kind=kernel_kind, likelihood_variance=likelihood_variance
+    )
+    Z = _initial_inducing_points(dataset, search_space, num_inducing_points, 9)
+    M, P = Z.shape[0], dataset.num_outputs
+    params = SVGPParams(
+        kernel=base.kernel,
+        noise_variance=base.noise_variance,
+        mean_constant=base.mean_constant,
+        inducing_points=Z,
+        q_mu=Z.new_zeros((M, P)),
+        q_sqrt=torch.eye(M, dtype=Z.dtype, device=Z.device).expand(P, M, M).clone(),
+    )
+    return SparseVariational(
+        params,
+        dataset,
+        inducing_point_selector=inducing_point_selector,
+        train_noise=trainable_likelihood,
+        optimize_generator=optimize_generator,
+        priors=default_priors(base.kernel, KERNEL_PRIOR_SCALE) if kernel_priors else None,
+        minibatch_size=minibatch_size,
+        minibatch_iters=minibatch_iters,
+        learning_rate=learning_rate,
     )

@@ -6,12 +6,13 @@
 * :class:`RandomFourierFeatureTrajectorySampler` and :class:`DecoupledTrajectorySampler`:
   function-draw ("trajectory") samplers. The decoupled sampler implements Matheron's rule:
   a random-Fourier prior draw updated pathwise through the cached training Cholesky.
+* :class:`DecoupledInducingTrajectorySampler`: Matheron's rule through the inducing
+  variables of a sparse model (SGPR or SVGP).
 
 Trajectories carry one independent draw per batch column ``b`` of their ``[N, B, D]``
 input. Every function that draws is split in two: a small one that takes the base
 variables from a ``torch.Generator`` on the data's device, and a pure function of those
 variables (``*_from_draws``, the dataclasses), which a caller can feed its own draws.
-The decoupled sampler for inducing-point models waits for the sparse models.
 """
 from __future__ import annotations
 
@@ -276,3 +277,69 @@ class RandomFourierFeatureTrajectorySampler(TrajectorySampler):
         eps_n = standard_normal(generator, (batch_size, C), cache.X) if C <= m else None
         observations = self._model.get_internal_data().observations
         return rff_trajectory_from_draws(params, cache, observations, features, eps, eps_n)
+
+
+@dataclass(frozen=True)
+class DecoupledInducingTrajectory(TrajectoryFunctionClass):
+    """A Matheron-rule draw through inducing variables, one per batch column:
+    ``f_b(x) = mean + phi(x) w_b + k(x, Z) v_b`` with ``v_b = Kuu⁻¹ (u_b − phi(Z) w_b)``
+    and ``u_b ~ q(u)``."""
+
+    mean_constant: torch.Tensor
+    kernel: Stationary
+    Z: torch.Tensor  # [M, D]
+    L_uu: torch.Tensor  # chol(Kuu + 1e-6 I) [M, M]
+    features: FourierFeatures
+    w: torch.Tensor  # [B, m]
+    v: torch.Tensor  # [B, M]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:  # [N, B, D] -> [N, B, 1]
+        prior = torch.einsum("nbm,bm->nb", self.features(x), self.w)
+        update = torch.einsum("nbk,bk->nb", gram(self.kernel, x, self.Z), self.v)
+        return (self.mean_constant + prior + update)[..., None]
+
+
+def decoupled_inducing_trajectory_from_draws(
+    kernel: Stationary,
+    mean_constant: torch.Tensor,
+    inducing_variables: Tuple[torch.Tensor, torch.Tensor, torch.Tensor, bool],
+    features: FourierFeatures,
+    w: torch.Tensor,
+    eps: torch.Tensor,
+) -> DecoupledInducingTrajectory:
+    """The trajectory of prior weights ``w [B, m]`` and standard normals ``eps [B, M]``
+    that draw ``u_b`` from ``q(u)`` (its first output), given a model's
+    ``(Z, q_mu, q_sqrt, whiten)``."""
+    Z, q_mu, q_sqrt, whiten = inducing_variables
+    M = Z.shape[0]
+    L_uu = nan_cholesky(gram(kernel, Z) + 1e-6 * torch.eye(M, dtype=Z.dtype, device=Z.device))
+    v_sample = q_mu[:, 0][None, :] + eps @ q_sqrt[0].T  # [B, M]
+    u_sample = v_sample @ L_uu.T if whiten else v_sample
+    resid = u_sample - w @ features(Z).T  # [B, M]
+    v = cho_solve(L_uu, resid.T).T
+    return DecoupledInducingTrajectory(
+        mean_constant=mean_constant, kernel=kernel, Z=Z, L_uu=L_uu, features=features, w=w, v=v
+    )
+
+
+class DecoupledInducingTrajectorySampler(TrajectorySampler):
+    """Decoupled trajectories of a model that exposes ``get_inducing_variables`` (SGPR,
+    SVGP)."""
+
+    def __init__(self, model, num_features: int = 1000):
+        super().__init__(model)
+        self._num_features = num_features
+
+    def get_trajectory(
+        self, generator: Optional[torch.Generator], batch_size: int = 1
+    ) -> TrajectoryFunction:
+        params = self._model.params
+        inducing = self._model.get_inducing_variables()
+        Z = inducing[0]
+        generator = generator_for(generator, Z.device)
+        features = make_fourier_features(generator, params.kernel, self._num_features, Z.shape[1])
+        w = standard_normal(generator, (batch_size, self._num_features), Z)
+        eps = standard_normal(generator, (batch_size, Z.shape[0]), Z)
+        return decoupled_inducing_trajectory_from_draws(
+            params.kernel, params.mean_constant, inducing, features, w, eps
+        )

@@ -116,6 +116,17 @@ class SupportsCovarianceBetweenPoints(SupportsPredictJoint, Protocol):
         raise NotImplementedError
 
 
+@runtime_checkable
+class SupportsGetInducingVariables(ProbabilisticModel, Protocol):
+    """Models with inducing variables (the sparse GPs)."""
+
+    def get_inducing_variables(
+        self,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, bool]:
+        """``(Z [M, D], q_mu [M, L], q_sqrt [L, M, M], whiten)``."""
+        raise NotImplementedError
+
+
 class ReparametrizationSampler(ABC):
     """Repeatable Monte-Carlo sampling by the reparametrization trick: the base normal
     draws are frozen at the first call (or given as ``eps``), so every later call is the

@@ -10,6 +10,7 @@ from .multi_objectives import (
 )
 from .single_objectives import (
     Branin,
+    ConstrainedScaledBranin,
     Hartmann6,
     ObjectiveTestProblem,
     ScaledBranin,

@@ -1,6 +1,6 @@
 """Single-objective benchmark problems (counterpart of
-:mod:`trieste_tpu.objectives.single_objectives`): Branin, ScaledBranin, Hartmann6 and
-SimpleQuadratic.
+:mod:`trieste_tpu.objectives.single_objectives`): Branin, ScaledBranin,
+ConstrainedScaledBranin, Hartmann6 and SimpleQuadratic.
 
 The problems' search spaces live on ``cuda``; ``problem.search_space.to("cpu")`` gives the
 same box on the CPU.
@@ -20,7 +20,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..space import Box, SearchSpace
+from ..space import Box, NonlinearConstraint, SearchSpace
 
 ObjectiveFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -89,6 +89,25 @@ ScaledBranin = SingleObjectiveTestProblem(
     minimizers=(_BRANIN_MINIMIZERS + np.array([5.0, 0.0])) / 15.0,
     minimum=np.array([(0.397887 - 54.8104) / 51.9496]),
 )
+
+
+
+def _branin_disk(x: torch.Tensor) -> torch.Tensor:
+    z = x - 0.5
+    return torch.sqrt(z[..., 0] ** 2 + z[..., 1] ** 2) - 0.4
+
+
+ConstrainedScaledBranin = SingleObjectiveTestProblem(
+    name="Constrained Scaled Branin",
+    objective=scaled_branin,
+    search_space=Box(
+        [0.0, 0.0], [1.0, 1.0], constraints=[NonlinearConstraint(_branin_disk, -100.0, 0.0)]
+    ),
+    minimizers=np.array([[0.16518, 0.66518]]),
+    minimum=np.array([-0.99888]),
+)
+"""ScaledBranin inside the disk of radius 0.4 around the centre. The declared minimum is the
+JAX package's; ScaledBranin's minimizer (0.5428, 0.1517) lies in the disk too, at -1.04741."""
 
 _H_ALPHA = np.array([1.0, 1.2, 3.0, 3.2])
 _H6_A = np.array(

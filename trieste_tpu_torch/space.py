@@ -1,7 +1,8 @@
 """Search spaces (counterpart of :mod:`trieste_tpu.space`): the :class:`SearchSpace` ABC,
-an unconstrained :class:`Box` with uniform, Halton and Sobol sampling, the discrete and
+a :class:`Box` with uniform, Halton and Sobol sampling, the discrete and
 categorical spaces, and the tagged product and multi spaces (the latter is the acquisition
-space of a trust-region fleet), with the one-hot encoders. Constraints are not ported.
+space of a trust-region fleet), with the one-hot encoders, and the linear and nonlinear
+constraints that a box may carry, with rejection sampling of feasible points.
 
 Every space lives on one device: a box becomes tensors there when its bounds are read, a
 discrete space keeps its points there, and a collection requires all its subspaces there.
@@ -15,6 +16,10 @@ True
 >>> product = box * discrete  # a tagged product: the dimensions are concatenated
 >>> product.dimension, product.subspace_tags
 (3, ('0', '1'))
+>>> disk = NonlinearConstraint(lambda x: torch.sum(torch.square(x - 0.5), -1), 0.0, 0.25)
+>>> unit = Box([0.0, 0.0], [1.0, 1.0], constraints=[disk], device="cpu")
+>>> bool(unit.is_feasible(unit.sample_feasible(torch.Generator().manual_seed(0), 8)).all())
+True
 >>> fleet = TaggedMultiSearchSpace([box, Box([0.0, 0.0], [0.5, 0.5], device="cpu")])
 >>> tuple(fleet.sample(torch.Generator().manual_seed(0), 4).shape)  # [n, V, D]
 (4, 2, 2)
@@ -40,6 +45,100 @@ class HasOneHotEncoder:
 
     def one_hot_encoder(self) -> Optional[EncoderFunction]:  # pragma: no cover
         return None
+
+
+DEFAULT_DTYPE_EPS = 1e-7
+"""How far below zero a residual may fall with the point still feasible."""
+
+
+class SampleTimeoutError(Exception):
+    """Raised when rejection sampling of feasible points fails to find enough points."""
+
+
+def _constraint_tensor(value: TensorType) -> torch.Tensor:
+    """A constraint's coefficients as a tensor: a tensor keeps its device, anything else
+    becomes an fp64 tensor on the CPU. A box moves its constraints to its own device."""
+    if isinstance(value, torch.Tensor):
+        return value.detach()
+    return torch.as_tensor(np.asarray(value, np.float64))
+
+
+class Constraint(ABC):
+    """A constraint on a search space."""
+
+    @abstractmethod
+    def residual(self, points: torch.Tensor) -> torch.Tensor:
+        """Residuals, all ``>= 0`` iff feasible, shape ``[..., num_residuals]``."""
+
+    @abstractmethod
+    def shift(self, offset: int, width: int, total_dim: int) -> "Constraint":
+        """The same constraint on dims ``[offset, offset + width)`` of a
+        ``total_dim``-dimensional product space."""
+
+    @abstractmethod
+    def to(self, device: Union[str, torch.device], dtype: torch.dtype) -> "Constraint":
+        """The same constraint with its coefficients on ``device`` in ``dtype``."""
+
+
+class LinearConstraint(Constraint):
+    """The linear constraint ``lb <= A @ x <= ub``."""
+
+    def __init__(self, A: TensorType, lb: TensorType, ub: TensorType):
+        self.A = _constraint_tensor(A)
+        rows = (self.A.shape[0],)
+        self.lb = _constraint_tensor(lb).to(self.A).expand(rows)
+        self.ub = _constraint_tensor(ub).to(self.A).expand(rows)
+
+    def residual(self, points: torch.Tensor) -> torch.Tensor:
+        ax = points @ self.A.to(points).T
+        return torch.cat([ax - self.lb.to(points), self.ub.to(points) - ax], dim=-1)
+
+    def shift(self, offset: int, width: int, total_dim: int) -> "LinearConstraint":
+        A = self.A.new_zeros((self.A.shape[0], total_dim))
+        A[:, offset : offset + width] = self.A
+        return LinearConstraint(A, self.lb, self.ub)
+
+    def to(self, device: Union[str, torch.device], dtype: torch.dtype) -> "LinearConstraint":
+        move = lambda t: t.to(device=device, dtype=dtype)  # noqa: E731
+        return LinearConstraint(move(self.A), move(self.lb), move(self.ub))
+
+    def __repr__(self) -> str:
+        return f"LinearConstraint(A={self.A!r}, lb={self.lb!r}, ub={self.ub!r})"
+
+    def __eq__(self, other: object) -> bool:
+        return (
+            isinstance(other, LinearConstraint)
+            and torch.equal(self.A, other.A.to(self.A))
+            and torch.equal(self.lb, other.lb.to(self.lb))
+            and torch.equal(self.ub, other.ub.to(self.ub))
+        )
+
+
+class NonlinearConstraint(Constraint):
+    """The constraint ``lb <= f(x) <= ub`` for a differentiable torch function ``f`` of
+    ``[..., D]`` points (one value per point, or ``[..., k]`` values)."""
+
+    def __init__(self, f: Callable[[torch.Tensor], torch.Tensor], lb: TensorType, ub: TensorType):
+        self.f = f
+        self.lb = torch.atleast_1d(_constraint_tensor(lb))
+        self.ub = torch.atleast_1d(_constraint_tensor(ub).to(self.lb))
+
+    def residual(self, points: torch.Tensor) -> torch.Tensor:
+        val = self.f(points)
+        if val.ndim == points.ndim - 1:
+            val = val[..., None]
+        return torch.cat([val - self.lb.to(val), self.ub.to(val) - val], dim=-1)
+
+    def shift(self, offset: int, width: int, total_dim: int) -> "NonlinearConstraint":
+        inner, lo, hi = self.f, offset, offset + width
+        return NonlinearConstraint(lambda points: inner(points[..., lo:hi]), self.lb, self.ub)
+
+    def to(self, device: Union[str, torch.device], dtype: torch.dtype) -> "NonlinearConstraint":
+        move = lambda t: t.to(device=device, dtype=dtype)  # noqa: E731
+        return NonlinearConstraint(self.f, move(self.lb), move(self.ub))
+
+    def __repr__(self) -> str:
+        return f"NonlinearConstraint(f={self.f!r}, lb={self.lb!r}, ub={self.ub!r})"
 
 
 class SearchSpace(ABC):
@@ -81,6 +180,25 @@ class SearchSpace(ABC):
 
     def __contains__(self, value: torch.Tensor) -> bool:
         return bool(self.contains(value))
+
+    @property
+    def constraints(self) -> Sequence[Constraint]:
+        """The constraints on this space (default: none)."""
+        return []
+
+    @property
+    def has_constraints(self) -> bool:
+        return len(self.constraints) > 0
+
+    def constraints_residuals(self, points: torch.Tensor) -> torch.Tensor:
+        """All the constraints' residuals side by side, ``[..., sum of residuals]``."""
+        if not self.constraints:
+            raise NotImplementedError("space has no constraints")
+        return torch.cat([c.residual(points) for c in self.constraints], dim=-1)
+
+    def is_feasible(self, points: torch.Tensor) -> torch.Tensor:
+        """Whether each point satisfies every constraint (to ``DEFAULT_DTYPE_EPS``)."""
+        return torch.all(self.constraints_residuals(points) >= -DEFAULT_DTYPE_EPS, dim=-1)
 
     def product(self, *others: "SearchSpace") -> "SearchSpace":
         """Cartesian product."""
@@ -281,13 +399,16 @@ class Box(SearchSpace):
     """A continuous box ``[lower, upper]`` on one device.
 
     The bounds are kept on the host (numpy) and become tensors on ``device`` when read,
-    so a box can be built where no card is present. Zero-width dimensions are valid.
+    so a box can be built where no card is present. Zero-width dimensions are valid. The
+    box's constraints are moved to its device and dtype when first read, for the same
+    reason.
     """
 
     def __init__(
         self,
         lower: TensorType,
         upper: TensorType,
+        constraints: Optional[Sequence[Constraint]] = None,
         *,
         dtype: Optional[torch.dtype] = None,
         device: Union[str, torch.device] = "cuda",
@@ -308,10 +429,18 @@ class Box(SearchSpace):
         self._upper = upper
         self._dtype = dtype or default_float()
         self._device = torch.device(device)
+        self._constraints = list(constraints or [])  # as given: products and ``to`` use them
+        self._placed: Optional[list[Constraint]] = None
 
     @property
     def dtype(self) -> torch.dtype:
         return self._dtype
+
+    @property
+    def constraints(self) -> Sequence[Constraint]:
+        if self._placed is None:
+            self._placed = [c.to(self._device, self._dtype) for c in self._constraints]
+        return self._placed
 
     @property
     def device(self) -> torch.device:
@@ -324,7 +453,8 @@ class Box(SearchSpace):
     ) -> "Box":
         """The same box on another device or with another dtype."""
         return Box(
-            self._lower, self._upper, dtype=dtype or self._dtype, device=device or self._device
+            self._lower, self._upper, self._constraints, dtype=dtype or self._dtype,
+            device=device or self._device,
         )
 
     @property
@@ -373,12 +503,69 @@ class Box(SearchSpace):
             sobol_sample(num_samples, self.dimension, skip, self._dtype, self._device)
         )
 
+    # -- feasible sampling by rejection -------------------------------------------------
+
+    def _sample_feasible_loop(
+        self, num_samples: int, sampler: Callable[[int], torch.Tensor], max_tries: int
+    ) -> torch.Tensor:
+        """The first ``num_samples`` feasible points, in draw order, of up to ``max_tries``
+        draws of ``num_samples`` candidates each."""
+        feasible, total = [], 0
+        for _ in range(max_tries):
+            candidates = sampler(num_samples)
+            keep = candidates[self.is_feasible(candidates)]
+            feasible.append(keep)
+            total += keep.shape[0]
+            if total >= num_samples:
+                return torch.cat(feasible)[:num_samples]
+        raise SampleTimeoutError(
+            f"failed to sample {num_samples} feasible points in {max_tries} tries"
+        )
+
+    def sample_feasible(
+        self, generator: Optional[torch.Generator], num_samples: int, max_tries: int = 100
+    ) -> torch.Tensor:
+        """Uniform samples of the feasible region, by rejection (each try draws
+        ``num_samples`` candidates); without constraints, :meth:`sample`."""
+        if not self.has_constraints:
+            return self.sample(generator, num_samples)
+        return self._sample_feasible_loop(
+            num_samples, lambda n: self.sample(generator, n), max_tries
+        )
+
+    def sample_halton_feasible(
+        self, generator: Optional[torch.Generator], num_samples: int, max_tries: int = 100
+    ) -> torch.Tensor:
+        """Halton samples of the feasible region, each try with its own rotation."""
+        if not self.has_constraints:
+            return self.sample_halton(generator, num_samples)
+        return self._sample_feasible_loop(
+            num_samples, lambda n: self.sample_halton(generator, n), max_tries
+        )
+
+    def sample_sobol_feasible(
+        self, num_samples: int, skip: Optional[int] = None, max_tries: int = 100
+    ) -> torch.Tensor:
+        """Sobol samples of the feasible region: each try continues the sequence where the
+        last one stopped."""
+        if not self.has_constraints:
+            return self.sample_sobol(num_samples, skip)
+        skips = iter(range(skip or 0, (skip or 0) + max_tries * num_samples, num_samples))
+        return self._sample_feasible_loop(
+            num_samples, lambda n: self.sample_sobol(n, skip=next(skips)), max_tries
+        )
+
     def __mul__(self, other: SearchSpace) -> SearchSpace:
         if not isinstance(other, Box):
             return TaggedProductSearchSpace([self, other])
+        d1, d2 = self.dimension, other.dimension
+        constraints = [c.shift(0, d1, d1 + d2) for c in self._constraints] + [
+            c.shift(d1, d2, d1 + d2) for c in other._constraints
+        ]
         return Box(
             np.concatenate([self._lower, other._lower]),
             np.concatenate([self._upper, other._upper]),
+            constraints,
             dtype=self._dtype,
             device=self._device,
         )
@@ -388,6 +575,7 @@ class Box(SearchSpace):
             isinstance(other, Box)
             and bool(np.array_equal(self._lower, other._lower))
             and bool(np.array_equal(self._upper, other._upper))
+            and list(self._constraints) == list(other._constraints)
         )
 
     def __repr__(self) -> str:
