@@ -620,3 +620,89 @@ def test_sparse_predictions_in_fp32_on_the_card_match_fp64_on_the_cpu(device, mo
     wmean, wcov = cpu.predict_joint(x[:12].reshape(3, 4, 3))
     torch.testing.assert_close(jmean.cpu().double(), wmean, **MEAN_TOL)
     torch.testing.assert_close(jcov.cpu().double(), wcov, **VAR_TOL)
+
+
+def test_rejected_natural_gradient_step_in_fp32_reads_nothing_back(device):
+    """A step of 4 from a narrow ``q`` (``S = 0.01·I``) leaves the positive-definite cone:
+    its Cholesky fails, the step is rejected on the card and ``q`` stays, with no read
+    from the device (a synchronizing call raises in the sync debug mode)."""
+    from trieste_tpu_torch.data import Dataset
+    from trieste_tpu_torch.models.gp import vgp as tvgp
+
+    g = torch.Generator(device=device).manual_seed(0)
+    X = 2 * torch.rand(40, 2, generator=g, device=device) - 1
+    data = Dataset.from_arrays(X, (X.square().sum(-1, keepdim=True) > 0.5).float())
+    params = tvgp.VGPParams(
+        kernel=stationary("matern52", 1.0, [0.5, 0.5], device=device),
+        mean_constant=torch.zeros((), device=device),
+        q_mu=torch.randn(data.capacity, 1, generator=g, device=device),
+        q_sqrt=0.1 * torch.eye(data.capacity, device=device),
+    )
+    args = (data.query_points, data.observations, data.mask)
+    # a first step uploads the quadrature's nodes to the card, once per device
+    tvgp.natural_gradient_step_with_status(params, *args, 0.5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stepped, ok = tvgp.natural_gradient_step_with_status(params, *args, 4.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not bool(ok)
+    assert torch.equal(stepped.q_mu, params.q_mu) and torch.equal(stepped.q_sqrt, params.q_sqrt)
+    taken, ok = tvgp.natural_gradient_step_with_status(params.replace(q_sqrt=torch.eye(data.capacity, device=device)), *args, 0.5)
+    assert bool(ok) and bool(torch.isfinite(taken.q_sqrt).all())
+
+
+def _ar1_on(device, dtype, N=4096):
+    """A three-level AR(1) model on 50, 20 and 10 points, noise/signal 1e-3 (the fused
+    gate admits it), and an [N, 2] pool with every fidelity."""
+    from trieste_tpu_torch import convert
+
+    g = torch.Generator().manual_seed(1)
+    levels = []
+    for n, var, ls in ((50, 1.3, 0.2), (20, 0.4, 0.3), (10, 0.2, 0.5)):
+        x = torch.rand(n, 1, generator=g, dtype=torch.float64)
+        levels.append((dict(kind="matern52", variance=var, lengthscales=[ls], noise_variance=1e-3 * var,
+                            mean_constant=0.1), dict(query_points=x, observations=torch.sin(9 * x),
+                                                     num_points=n, capacity=None)))
+    model = convert.multifidelity_autoregressive_from_numpy([0.8, 0.9], levels, device=device, dtype=dtype)
+    pool = torch.cat([torch.rand(N, 1, generator=g, dtype=torch.float64),
+                      torch.randint(0, 3, (N, 1), generator=g).double()], -1)
+    return model, pool.to(device, dtype)
+
+
+def test_ar1_pool_launches_one_kernel_per_level_and_matches_the_plain_version(device):
+    model, pool = _ar1_on(device, torch.float32)
+    before = fp.launches
+    mean, var = model.predict(pool)
+    assert fp.launches == before + 3
+    x = pool[:, :1].contiguous()
+    for level in model._models:  # each level's kernel against its plain version, same operands
+        got = level.predict(x)
+        args = fp.operands(level.params, level.posterior_cache, x)
+        want = fp.fused_predict_reference(args[0], *(t.double() for t in args[1:]))
+        torch.testing.assert_close(got[0].double(), want[0], **MEAN_TOL)
+        torch.testing.assert_close(got[1][:, 0].double(), want[1], **VAR_TOL)
+    assert fp.launches == before + 6
+    assert mean.shape == var.shape == (pool.shape[0], 1) and bool(torch.isfinite(mean).all())
+
+
+def test_nargp_propagation_is_one_launch_per_level(device):
+    """At 4096 rows and 8 samples, level 0 predicts 4096 rows and level 1 its 32,768
+    propagated rows, each in one launch."""
+    from trieste_tpu_torch import convert
+
+    g = torch.Generator().manual_seed(2)
+    x0 = torch.rand(40, 1, generator=g, dtype=torch.float64)
+    x1 = torch.cat([x0[:15], torch.sin(9 * x0[:15])], -1)
+    levels = [(dict(kind="matern52", variance=1.0, lengthscales=ls, noise_variance=1e-3, mean_constant=0.0),
+               dict(query_points=x, observations=torch.cos(5 * x[:, :1]), num_points=x.shape[0], capacity=None))
+              for x, ls in ((x0, [0.2]), (x1, [0.3, 1.0]))]
+    model = convert.multifidelity_nonlinear_autoregressive_from_numpy(
+        levels, 8, generator=torch.Generator(device=device).manual_seed(0), device=device,
+        dtype=torch.float32)
+    pool = torch.cat([torch.rand(4096, 1, device=device), torch.ones(4096, 1, device=device)], -1)
+    before = fp.launches
+    mean, var = model.predict(pool)
+    assert fp.launches == before + 2
+    assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())

@@ -10,7 +10,7 @@ from .continuous_thompson_sampling import (
     ParallelContinuousThompsonSampling,
     negate_trajectory_function,
 )
-from .entropy import GIBBON, MinValueEntropySearch
+from .entropy import GIBBON, MUMBO, CostWeighting, MinValueEntropySearch
 from .function import (
     AugmentedExpectedImprovement,
     BatchExpectedImprovement,
@@ -49,6 +49,7 @@ from .functional import (
     monte_carlo_augmented_expected_improvement,
     monte_carlo_expected_improvement,
     multiple_optimism_lower_confidence_bound,
+    mumbo,
     predictive_variance,
     probability_below_threshold,
     soft_local_penalizer,

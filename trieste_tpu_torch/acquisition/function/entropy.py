@@ -1,21 +1,26 @@
 """Entropy-based acquisition functions (counterpart of
-:mod:`trieste_tpu.acquisition.function.entropy`): min-value entropy search (MES) and
-GIBBON. The multifidelity MUMBO waits for the multifidelity models.
+:mod:`trieste_tpu.acquisition.function.entropy`): min-value entropy search (MES), GIBBON,
+and the multifidelity MUMBO with the per-fidelity cost weighting.
 
-Both sample the value of the global minimum over a random grid plus the observed points,
-by a Thompson sampler of minimum values (Gumbel by default). ``generator=None`` makes one
+Each samples the value of the global minimum over a random grid (MES and GIBBON add the
+observed points; MUMBO samples the top fidelity) by a Thompson sampler of minimum values
+(Gumbel by default). ``generator=None`` makes one
 generator, seeded 0 on the data's device, at the first preparation; every later
 preparation advances it, so each BO step draws a new grid and new samples.
 """
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from ...data import Dataset
-from ...models.interfaces import ProbabilisticModel, SupportsGetObservationNoise
+from ...models.interfaces import (
+    ProbabilisticModel,
+    SupportsCovarianceWithTopFidelity,
+    SupportsGetObservationNoise,
+)
 from ...space import SearchSpace
 from ...utils.misc import new_generator
 from ..interface import (
@@ -110,9 +115,16 @@ def _gibbon_quality_fn(
     """GIBBON's quality term: a lower bound on the information that observing ``y(x)``
     gives about the minimum's value. ``x: [..., 1, D] -> [..., 1]``."""
     var, gamma, minus_cdf = _truncation_terms(predict, min_value_samples, x)
-    rho2 = var / (var + noise_variance)  # squared latent/observed correlation
+    return _information_lower_bound(var / (var + noise_variance), gamma, minus_cdf)
+
+
+def _information_lower_bound(
+    rho2: torch.Tensor, gamma: torch.Tensor, minus_cdf: torch.Tensor
+) -> torch.Tensor:
+    """``-E_S[log(1 − rho² (1 − r(r − gamma)))] / 2`` with ``r = φ(gamma)/Ψ``, the variance
+    ratio of the truncated latent inside: GIBBON's and MUMBO's bound, given the squared
+    correlation ``rho2 [..., 1]`` of the observation with the latent and ``[..., S]``."""
     ratio = _normal_pdf(gamma) / minus_cdf
-    # the variance ratio of the truncated latent: 1 − r(r − gamma), r = φ/Ψ
     trunc_ratio = torch.clamp(1.0 - ratio * (ratio - gamma), CLAMP_LB, 1.0)
     inner = torch.clamp(1.0 - rho2 * (1.0 - trunc_ratio), CLAMP_LB, 1.0)
     return -0.5 * torch.mean(torch.log(inner), dim=-1, keepdim=True)
@@ -202,3 +214,154 @@ class GIBBON(SingleModelGreedyAcquisitionBuilder):
 
     def __repr__(self) -> str:
         return f"GIBBON({self._mes._search_space!r})"
+
+
+# -- multifidelity entropy search --------------------------------------------------------
+
+
+def _mumbo_fn(
+    predict: Callable,
+    cov_with_top: Callable,
+    predict_top: Callable,
+    noise_variance: torch.Tensor,
+    min_value_samples: torch.Tensor,
+    x: torch.Tensor,
+) -> torch.Tensor:
+    """MUMBO in its information-lower-bound form: an observation at fidelity ``m`` informs
+    the top fidelity's minimum through ``rho(x) = cov(y_m, f_top) / sqrt(var(y_m)
+    var(f_top))``. ``x: [..., 1, D+1]`` (a trailing fidelity column) ``-> [..., 1]``."""
+    xq = x[..., 0, :]
+    _, var_m = predict(xq)
+    var_y = torch.clamp_min(var_m, CLAMP_LB) + noise_variance
+    cov_mt = cov_with_top(xq)  # [..., 1]
+    var_t, gamma, minus_cdf = _truncation_terms(predict_top, min_value_samples, x)
+    rho2 = torch.clamp(torch.square(cov_mt) / (var_y * var_t), 0.0, 1.0 - CLAMP_LB)
+    return _information_lower_bound(rho2, gamma, minus_cdf)
+
+
+def _unchecked(model, name: str) -> Callable:
+    """A multifidelity model's ``name`` without the fidelity check where it has one: the
+    optimizer's points take their fidelity from the space, and a check would read the
+    device at every evaluation."""
+    return getattr(model, f"{name}_unchecked", None) or getattr(model, name)
+
+
+class _TopFidelityView:
+    """A multifidelity model seen as a plain model at its top fidelity."""
+
+    def __init__(self, model, top: int):
+        self._model = model
+        self._top = float(top)
+
+    def _at_top(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.clone()
+        x[..., -1] = self._top
+        return x
+
+    def predict(self, x: torch.Tensor):
+        return _unchecked(self._model, "predict")(self._at_top(x))
+
+    def sample(self, generator, x: torch.Tensor, num_samples: int) -> torch.Tensor:
+        return self._model.sample(generator, self._at_top(x), num_samples)
+
+
+def _mumbo_partial(model, noise: torch.Tensor, min_value_samples: torch.Tensor):
+    top_view = _TopFidelityView(model, model.num_fidelities - 1)
+    return partial(
+        _mumbo_fn,
+        _unchecked(model, "predict"),
+        _unchecked(model, "covariance_with_top_fidelity"),
+        top_view.predict,
+        noise,
+        min_value_samples,
+    )
+
+
+class MUMBO(SingleModelAcquisitionBuilder):
+    """MUlti-task Max-value Bayesian Optimization: multifidelity MES. It needs a model
+    with ``covariance_with_top_fidelity`` and a space whose trailing coordinate is the
+    fidelity. The minimum values are sampled on ``grid_size`` random points of the space
+    moved to the top fidelity. A model without ``get_observation_noise`` (AR(1) has none)
+    is taken as noise-free."""
+
+    def __init__(
+        self,
+        search_space: SearchSpace,
+        num_samples: int = 5,
+        grid_size: int = 1000,
+        min_value_sampler: Optional[ThompsonSampler] = None,
+        *,
+        generator: Optional[torch.Generator] = None,
+    ):
+        self._mes = MinValueEntropySearch(
+            search_space, num_samples, grid_size, min_value_sampler, generator=generator
+        )
+
+    def prepare_acquisition_function(
+        self, model: ProbabilisticModel, dataset: Optional[Dataset] = None
+    ) -> AcquisitionFunction:
+        if not isinstance(model, SupportsCovarianceWithTopFidelity):
+            raise ValueError("MUMBO requires a multifidelity model")
+        if dataset is None or len(dataset) == 0:
+            raise ValueError("MUMBO requires a non-empty dataset")
+        mes = self._mes
+        if mes._generator is None:
+            mes._generator = new_generator(dataset.device, 0)
+        top_view = _TopFidelityView(model, model.num_fidelities - 1)
+        grid = top_view._at_top(mes._search_space.sample(mes._generator, mes._grid_size))
+        samples = mes._sampler.sample(top_view, mes._num_samples, grid, generator=mes._generator)
+        noise = (
+            model.get_observation_noise() if hasattr(model, "get_observation_noise")
+            else torch.zeros((), dtype=samples.dtype, device=samples.device)
+        )
+        return _mumbo_partial(model, noise, samples)
+
+    def __repr__(self) -> str:
+        return "MUMBO()"
+
+
+def _fidelity_costs(costs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The cost of each candidate's fidelity, ``x: [..., 1, D+1] -> [..., 1]``."""
+    fid = x[..., 0, -1].long()
+    return costs.to(device=x.device, dtype=x.dtype)[fid][..., None]
+
+
+def _cost_weighted_fn(base: Callable, costs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return base(x) / _fidelity_costs(costs, x)
+
+
+def _reciprocal_cost_fn(costs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return 1.0 / _fidelity_costs(costs, x)
+
+
+class CostWeighting(SingleModelAcquisitionBuilder):
+    """The reciprocal of each fidelity's observation cost, ``1 / cost(fidelity)``, to be
+    combined by product, as in ``Product(MUMBO(space).using(OBJECTIVE),
+    CostWeighting(costs).using(OBJECTIVE))``. ``apply_to(base_fn)`` gives
+    ``base_fn(x) / cost(fidelity)`` directly. The costs take the device and dtype of the
+    data at preparation, of the points at each call of ``apply_to``'s function."""
+
+    def __init__(self, observation_costs: Sequence[float]):
+        self._costs = torch.as_tensor(observation_costs, dtype=torch.float64)
+
+    def prepare_acquisition_function(
+        self, model: ProbabilisticModel, dataset: Optional[Dataset] = None
+    ) -> AcquisitionFunction:
+        costs = self._costs
+        if dataset is not None:
+            costs = costs.to(device=dataset.device, dtype=dataset.query_points.dtype)
+        return partial(_reciprocal_cost_fn, costs)
+
+    def update_acquisition_function(
+        self,
+        function: AcquisitionFunction,
+        model: ProbabilisticModel,
+        dataset: Optional[Dataset] = None,
+    ) -> AcquisitionFunction:
+        return function
+
+    def apply_to(self, base_fn: AcquisitionFunction) -> AcquisitionFunction:
+        return partial(_cost_weighted_fn, base_fn, self._costs)
+
+    def __repr__(self) -> str:
+        return f"CostWeighting({self._costs.tolist()!r})"

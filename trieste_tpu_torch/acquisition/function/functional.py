@@ -3,7 +3,7 @@
 and returns the acquisition function itself, a :func:`functools.partial` of the same
 module-level function that the builder's function binds. The Monte-Carlo forms take a
 sample callable ``x -> samples`` whose base draws are fixed (a reparametrization
-sampler's bound ``sample``). MUMBO waits for the multifidelity models.
+sampler's bound ``sample``).
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from .active_learning import (
     _expected_feasibility_ranjan_fn,
     _predictive_variance_fn,
 )
-from .entropy import _gibbon_quality_fn, _gibbon_repulsion_fn, _mes_fn
+from .entropy import _gibbon_quality_fn, _gibbon_repulsion_fn, _mes_fn, _mumbo_partial
 from .function import (
     _aei_fn,
     _analytic_qei_fn,
@@ -144,6 +144,15 @@ def gibbon_repulsion_term(model, pending_points: torch.Tensor) -> AcquisitionFun
         _gibbon_repulsion_fn, joint_predictor(model), model.get_observation_noise(),
         pending_points,
     )
+
+
+def mumbo(model, min_value_samples: torch.Tensor) -> AcquisitionFunction:
+    """Multifidelity MES given the top fidelity's sampled minima ``[S, 1]``; ``model`` must
+    support ``covariance_with_top_fidelity``. It reads ``model.get_observation_noise()``,
+    as the JAX package's form does, so an AR(1) model (which has none) raises
+    ``AttributeError`` here, where the builder :class:`~.entropy.MUMBO` takes it as
+    noise-free."""
+    return _mumbo_partial(model, model.get_observation_noise(), min_value_samples)
 
 
 def soft_local_penalizer(

@@ -25,10 +25,16 @@ from .acquisition.trust_region import (
 )
 from .data import Dataset
 from .models.gp.gpr import GaussianProcessRegression
+from .models.gp.likelihoods import BernoulliLikelihood, GaussianLikelihood, PoissonLikelihood
+from .models.gp.multifidelity import (
+    MultifidelityAutoregressive,
+    MultifidelityNonlinearAutoregressive,
+)
 from .models.gp.posterior import GPRCache, GPRParams
 from .models.gp.priors import GPPriors
 from .models.gp.sampler import DecoupledTrajectory, FourierFeatures, RFFTrajectory
 from .models.gp.sparse import SGPRParams, SVGPParams
+from .models.gp.vgp import VGPParams
 from .models.interfaces import ModelStack, TrainableModelStack
 from .ops.kernels import stationary
 from .space import Box, Constraint, LinearConstraint
@@ -99,6 +105,83 @@ def svgp_params_from_numpy(
     return SVGPParams(kernel=base.kernel, noise_variance=base.noise_variance,
                       mean_constant=base.mean_constant, inducing_points=like,
                       q_mu=_tensor(q_mu, device, like.dtype), q_sqrt=_tensor(q_sqrt, device, like.dtype))
+
+
+def vgp_params_from_numpy(
+    kind: str,
+    variance,
+    lengthscales,
+    mean_constant,
+    q_mu,
+    q_sqrt,
+    *,
+    likelihood: str = "bernoulli",
+    likelihood_variance=None,
+    device: Device = "cuda",
+    dtype: Optional[torch.dtype] = None,
+) -> VGPParams:
+    """:class:`VGPParams` from numpy values, the likelihood named ``bernoulli``,
+    ``gaussian`` (with ``likelihood_variance``) or ``poisson``."""
+    base = gpr_params_from_numpy(kind, variance, lengthscales, 0.0, mean_constant,
+                                 device=device, dtype=dtype)
+    dtype = base.kernel.variance.dtype
+    likelihoods = {
+        "bernoulli": BernoulliLikelihood,
+        "poisson": PoissonLikelihood,
+        "gaussian": lambda: GaussianLikelihood(_tensor(likelihood_variance, device, dtype)),
+    }
+    return VGPParams(
+        kernel=base.kernel, mean_constant=base.mean_constant,
+        q_mu=_tensor(q_mu, device, dtype), q_sqrt=_tensor(q_sqrt, device, dtype),
+        likelihood=likelihoods[likelihood](),
+    )
+
+
+def _fidelity_levels(
+    levels: Sequence[Tuple[Mapping[str, Any], Mapping[str, Any]]], device: Device,
+    dtype: Optional[torch.dtype], model_kwargs,
+) -> list:
+    return [
+        GaussianProcessRegression(
+            gpr_params_from_numpy(**params, device=device, dtype=dtype),
+            dataset_from_numpy(**dataset, device=device, dtype=dtype),
+            **model_kwargs,
+        )
+        for params, dataset in levels
+    ]
+
+
+def multifidelity_autoregressive_from_numpy(
+    rho,
+    levels: Sequence[Tuple[Mapping[str, Any], Mapping[str, Any]]],
+    *,
+    device: Device = "cuda",
+    dtype: Optional[torch.dtype] = None,
+    **model_kwargs,
+) -> MultifidelityAutoregressive:
+    """An AR(1) model from numpy: ``rho [S-1]`` and, per level, ``(params, dataset)``, the
+    keyword arguments of :func:`gpr_params_from_numpy` and :func:`dataset_from_numpy` (a
+    residual level's dataset holds its residuals); ``model_kwargs`` go to every
+    :class:`GaussianProcessRegression`."""
+    models = _fidelity_levels(levels, device, dtype, model_kwargs)
+    return MultifidelityAutoregressive(models, rho=_tensor(rho, device, models[0].params.kernel.variance.dtype))
+
+
+def multifidelity_nonlinear_autoregressive_from_numpy(
+    levels: Sequence[Tuple[Mapping[str, Any], Mapping[str, Any]]],
+    num_monte_carlo: int = 32,
+    *,
+    generator: Optional[torch.Generator] = None,
+    device: Device = "cuda",
+    dtype: Optional[torch.dtype] = None,
+    **model_kwargs,
+) -> MultifidelityNonlinearAutoregressive:
+    """A NARGP model from numpy, its levels given as for
+    :func:`multifidelity_autoregressive_from_numpy` (an upper level's inputs augmented)."""
+    return MultifidelityNonlinearAutoregressive(
+        _fidelity_levels(levels, device, dtype, model_kwargs), num_monte_carlo,
+        generator=generator,
+    )
 
 
 def linear_constraint_from_numpy(A, lb, ub) -> LinearConstraint:

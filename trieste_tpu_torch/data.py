@@ -161,3 +161,53 @@ class Dataset:
             f"Dataset(n={self.num_points}/{self.capacity}, D={self.dimension}, "
             f"L={self.num_outputs})"
         )
+
+
+# -- multifidelity helpers: query points carry a trailing fidelity column --------------
+
+
+def check_and_extract_fidelity_query_points(
+    query_points: torch.Tensor, max_fidelity: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split ``[..., D+1]`` points into the inputs ``[..., D]`` and the fidelity column
+    ``[..., 1]``, after checking that the fidelities are non-negative integers no larger
+    than ``max_fidelity`` (one reduction and one read from the device)."""
+    if query_points.shape[-1] < 2:
+        raise ValueError(
+            "Query points do not have enough dimensions to include a fidelity column"
+        )
+    input_points, fids = query_points[..., :-1], query_points[..., -1:]
+    if fids.numel():
+        checks = [(fids < 0).any(), (fids != torch.round(fids)).any()]
+        if max_fidelity is not None:
+            checks.append((fids > max_fidelity).any())
+        flags = torch.stack(checks).tolist()
+        if flags[0]:
+            raise ValueError(f"fidelity must be non-negative, got minimum {float(fids.min())}")
+        if flags[1]:
+            raise ValueError("fidelity column must contain integer values")
+        if max_fidelity is not None and flags[2]:
+            raise ValueError(
+                f"fidelity {float(fids.max())} exceeds the maximum fidelity {max_fidelity}"
+            )
+    return input_points, fids
+
+
+def split_dataset_by_fidelity(dataset: Dataset, num_fidelities: int) -> list[Dataset]:
+    """One dataset per fidelity level, without the fidelity column."""
+    if num_fidelities < 1:
+        raise ValueError(f"num_fidelities must be positive, got {num_fidelities}")
+    return [get_dataset_for_fidelity(dataset, f) for f in range(num_fidelities)]
+
+
+def get_dataset_for_fidelity(dataset: Dataset, fidelity: int) -> Dataset:
+    """The points at one fidelity, without the fidelity column."""
+    inputs, fids = check_and_extract_fidelity_query_points(dataset.trimmed_query_points)
+    at = fids[:, 0] == fidelity
+    return Dataset.from_arrays(inputs[at], dataset.trimmed_observations[at])
+
+
+def add_fidelity_column(query_points: torch.Tensor, fidelity) -> torch.Tensor:
+    """``query_points`` with a fidelity column appended."""
+    col = torch.as_tensor(fidelity, dtype=query_points.dtype, device=query_points.device)
+    return torch.cat([query_points, col.expand(query_points.shape[:-1] + (1,))], dim=-1)

@@ -1,5 +1,6 @@
-"""Gaussian-process models (counterpart of :mod:`trieste_tpu.models.gp`): the exact GP and
-the sparse SGPR and SVGP with their inducing-point selectors."""
+"""Gaussian-process models (counterpart of :mod:`trieste_tpu.models.gp`): the exact GP, the
+sparse SGPR and SVGP with their inducing-point selectors, the variational GP with its
+likelihoods, and the multifidelity models."""
 from .builders import (
     MAX_NUM_INDUCING_POINTS,
     NUM_INDUCING_POINTS_PER_DIM,
@@ -9,6 +10,12 @@ from .builders import (
     default_gpr_params,
 )
 from .gpr import GaussianProcessRegression
+from .likelihoods import BernoulliLikelihood, GaussianLikelihood, PoissonLikelihood
+from .multifidelity import (
+    MultifidelityAutoregressive,
+    MultifidelityNonlinearAutoregressive,
+    build_multifidelity_autoregressive_models,
+)
 from .inducing_points import (
     ConditionalImprovementReduction,
     ConditionalVarianceReduction,
@@ -30,3 +37,4 @@ from .sparse import (
     SparseVariational,
     SVGPParams,
 )
+from .vgp import VariationalGaussianProcess, VGPParams, build_vgp_classifier

@@ -127,6 +127,19 @@ class SupportsGetInducingVariables(ProbabilisticModel, Protocol):
         raise NotImplementedError
 
 
+@runtime_checkable
+class SupportsCovarianceWithTopFidelity(ProbabilisticModel, Protocol):
+    """Multifidelity models: query points carry a trailing fidelity column."""
+
+    @property
+    def num_fidelities(self) -> int:
+        raise NotImplementedError
+
+    def covariance_with_top_fidelity(self, query_points: torch.Tensor) -> torch.Tensor:
+        """``cov(f_m(x), f_top(x))`` at each ``[x, m]`` row, ``[N, 1]``."""
+        raise NotImplementedError
+
+
 class ReparametrizationSampler(ABC):
     """Repeatable Monte-Carlo sampling by the reparametrization trick: the base normal
     draws are frozen at the first call (or given as ``eps``), so every later call is the

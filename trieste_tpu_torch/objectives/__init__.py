@@ -22,3 +22,10 @@ from .single_objectives import (
     simple_quadratic,
 )
 from .utils import mk_batch_observer, mk_multi_observer, mk_observer
+from .multifidelity_objectives import (
+    Linear2Fidelity,
+    Linear3Fidelity,
+    Linear5Fidelity,
+    SingleObjectiveMultifidelityTestProblem,
+    linear_multifidelity,
+)
