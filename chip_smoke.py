@@ -158,12 +158,32 @@ Phases, each printing its own lines and its seconds:
    two categorical dimensions, one-hot to 12) with one EI acquire at 131,072 seeds, one
    launch. The kernel is held against its fp64 plain version on every level's pool, on the
    propagated rows and on the encoded pool;
-26. one JSON line describing each kernel. Its ``max_abs_err`` covers every case held to
+26. the fully-Bayesian GP to convergence as the JAX package's integration test sets it up
+   (``tests/integration/test_model_bayesian_optimization.py:54-57,66-69,110,120-136``):
+   ScaledBranin from 6 points, ``build_gpr_mcmc`` at a likelihood variance of 1e-6 with 3
+   chains of 15 samples and 10 retained, EGO with ``MonteCarloExpectedImprovement(500)``
+   and the default optimizer, within 20 steps to rtol 0.005 (seeds as in phase 8); each
+   run prints its HMC fit and acquire seconds apart and each fit's mean accept rate, step
+   sizes and non-finite log-posterior evaluations; no kernel launch, though its 5000-row
+   pools would pass the gate (the mixture predicts by the exact path);
+27. the fully-Bayesian GP at full width: phase 5's Hartmann6 data (1000 points, capacity
+   1024), ``build_gpr_mcmc`` at its defaults (4 chains of 25 samples after 100 of warmup,
+   20 retained), one timed fit; the mixture at 131,072 pool rows held against the fp64
+   plain mixture on the same samples and factors (the contract's tolerance), and its error
+   against fp64 factors printed beside phase 5's GP's; one MC EI acquire at 131,072 seeds
+   with its peak memory beside the bytes reckoned; no kernel launch;
+28. summaries, profiling and objectives: a three-step quickstart with a JSON-lines writer
+   must write the JAX loop's summary names at every step (``QUICKSTART_SUMMARIES_*``), each
+   flush making one device-to-host transfer (counted in the sync debug mode); a profiler
+   trace of one more step must name a CUDA kernel; every objective added with this phase
+   (``NEW_OBJECTIVES``) on the card at its minimizers within 1e-5·max(1, |f|) of its fp64
+   value on the CPU;
+29. one JSON line describing each kernel. Its ``max_abs_err`` covers every case held to
    the contract, including the kernel on the fitted models that phases 4 to 7, 12, 14 to
    17, 19 and 25 leave behind; the white-noise case has keys of its own.
 
-Phases 6 to 25 each print their seconds and phases 11 to 25 their kernel launches; phases 6
-to 21, 23 and 25 the bytes reckoned for their largest tensors and
+Phases 6 to 28 each print their seconds and phases 11 to 28 their kernel launches; phases 6
+to 21, 23 and 25 to 27 the bytes reckoned for their largest tensors and
 ``torch.cuda.max_memory_allocated()``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -244,6 +264,38 @@ GARDNER_DESIGN = (
     4.5528157595311916, 1.0986259099199898, 4.808495970037411, 5.509303474242305,
     3.46180949839025, 1.0699158730669742, 4.311917319032187, 0.6285433783636512,
 )
+
+# The summary names the JAX package's loop writes in a three-step quickstart with a writer
+# and the default filter (an exact GP on ScaledBranin, EGO with EI): at step 0, and at each
+# step after it. Phase 28 holds the port's loop to them; tests/test_torch_logging.py checks
+# them against the JAX loop.
+QUICKSTART_SUMMARIES_AT_STEP_0 = ("metadata", "model.training_loss", "wallclock/model_fitting")
+QUICKSTART_SUMMARIES_PER_STEP = (
+    "EGO.query_points", "OBJECTIVE.observation/best_new_observation",
+    "OBJECTIVE.observation/best_overall", "OBJECTIVE.observation/new_observations",
+    "OBJECTIVE.query_points/[0]", "OBJECTIVE.query_points/[1]", "accuracy/absolute_error",
+    "accuracy/mean_absolute_error", "accuracy/observations", "accuracy/observations_mean",
+    "accuracy/observations_variance", "accuracy/predict_mean", "accuracy/predict_mean__mean",
+    "accuracy/predict_variance", "accuracy/predict_variance__mean",
+    "accuracy/root_mean_square_error", "accuracy/root_mean_variance_error",
+    "accuracy/variance_error", "accuracy/z_residuals", "accuracy/z_residuals_std",
+    "kernel.lengthscale[0]", "kernel.lengthscale[1]", "kernel.variance", "likelihood.variance",
+    "model.training_loss", "spo_af_evaluations", "spo_improvement_on_initial_samples",
+    "wallclock/model_fitting", "wallclock/observation", "wallclock/query_point_generation",
+    "wallclock/step",
+)
+# Phase 26: the GPR-MCMC envelope of the JAX package's integration test
+# (tests/integration/test_model_bayesian_optimization.py:54-57,66-69,110,120-136)
+GPR_MCMC_STEPS = 20
+GPR_MCMC_MC_SAMPLES = 500
+GPR_MCMC_CONFIG = dict(likelihood_variance=1e-6, num_chains=3, num_samples_per_chain=15,
+                       num_retained=10)
+# Phase 28: the objectives added with the fully-Bayesian GP, held on the card at their
+# minimizers to their fp64 values within this multiple of max(1, |f|), about 80 float32 ulps
+NEW_OBJECTIVES = ("GramacyLee", "LogarithmicGoldsteinPrice", "Hartmann3", "Shekel4", "Levy8",
+                  "Rosenbrock4", "Ackley5", "Michalewicz2", "Michalewicz5", "Michalewicz10",
+                  "Trid10")
+OBJECTIVE_FP32_RTOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -1876,6 +1928,269 @@ def encoded_hartmann(dev):
     return space, objective
 
 
+def converge_gpr_mcmc(dev) -> int:
+    """Phase 26: the fully-Bayesian GP to the minimum of ScaledBranin as the JAX package's
+    integration test sets it up; returns seed 0's kernel launches (none is expected: the
+    mixture never takes the fused path)."""
+    from trieste_tpu_torch import BayesianOptimizer, stop_at_minimum
+    from trieste_tpu_torch.acquisition import (
+        EfficientGlobalOptimization,
+        MonteCarloExpectedImprovement,
+    )
+    from trieste_tpu_torch.models.gp import build_gpr_mcmc
+    from trieste_tpu_torch.objectives import ScaledBranin, mk_observer
+    from trieste_tpu_torch.ops import fused_predict as fp
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    space = ScaledBranin.search_space.to(dev)
+    observer = mk_observer(ScaledBranin.objective)
+    minimum = float(ScaledBranin.minimum[0])
+
+    def run(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        initial = observer(space.sample(gen, 6))
+        model = build_gpr_mcmc(initial, space, optimize_generator=torch.Generator(device=dev).manual_seed(seed),
+                               **GPR_MCMC_CONFIG)
+        fits = []
+        sample_hyperparameters = model.optimize
+
+        def timed_fit(dataset):
+            result, seconds = timed(lambda: sample_hyperparameters(dataset))
+            fits.append((seconds, result))
+            return result
+
+        model.optimize = timed_fit
+        fp.launches = 0
+        t0 = time.perf_counter()
+        result = BayesianOptimizer(observer, space).optimize(
+            GPR_MCMC_STEPS, initial, model,
+            EfficientGlobalOptimization(MonteCarloExpectedImprovement(GPR_MCMC_MC_SAMPLES)),
+            generator=gen, track_state=False,
+            early_stop_callback=stop_at_minimum(ScaledBranin.minimum, minimum_rtol=SCALED_BRANIN_RTOL))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if not result.is_ok:
+            fail(f"phase 26: the run failed: {result.final_result.error!r}")
+        final = result.try_get_final_dataset()
+        steps = len(final) - 6
+        best = float(final.trimmed_observations.min())
+        rel = relative_error(best, minimum)
+        ok = rel <= SCALED_BRANIN_RTOL
+        fit_seconds = [s for s, _ in fits]
+        per_fit = ", ".join(
+            f"{float(r.accept_rate.mean()):.2f}/{float(r.step_size.min()):.3g}-"
+            f"{float(r.step_size.max()):.3g}/{int(r.num_nonfinite.sum())}" for _, r in fits)
+        print(f"phase 26 GPR-MCMC on ScaledBranin (fp32), seed {seed}: {steps} steps of "
+              f"{GPR_MCMC_STEPS}, best {best:.6f}, rel err {rel:.3e} (limit {SCALED_BRANIN_RTOL}), "
+              f"{seconds / max(steps, 1):.3f} s/step: HMC fit {statistics.mean(fit_seconds):.3f} s "
+              f"per fit ({len(fits)} fits), acquire and observe "
+              f"{(seconds - sum(fit_seconds)) / max(steps, 1):.3f} s per step; kernel launches "
+              f"{fp.launches} {'ok' if ok else 'MISSED'}")
+        print(f"phase 26 seed {seed} fits (mean accept rate/step sizes min-max/non-finite "
+              f"log-posterior evaluations): {per_fit}")
+        if fp.launches:
+            fail(f"phase 26: the GPR-MCMC run launched the fused kernel {fp.launches} times")
+        return ok, fp.launches
+
+    launches = four_of_five("phase 26 GPR-MCMC", run)
+    # the seed pool's MC EI samples, improvements and mask [5000, 500], and six [S, 5000, 32]
+    # tensors of its mixture prediction at the run's largest capacity
+    reckoned = 3 * 5000 * GPR_MCMC_MC_SAMPLES * 4 + 6 * GPR_MCMC_CONFIG["num_retained"] * 5000 * 32 * 4
+    memory_line("phase 26", reckoned, t_phase)
+    return launches
+
+
+def gpr_mcmc_full_width(model_gpr, data, space, dev, N=131072) -> int:
+    """Phase 27: the fully-Bayesian GP on phase 5's Hartmann6 data (capacity 1024) at its
+    builder's defaults: one HMC fit, the mixture's prediction at ``N`` pool rows against
+    the fp64 plain mixture on the same stack, and one MC EI acquire at ``N`` seeds; returns
+    the kernel launches (none is expected)."""
+    from trieste_tpu_torch.acquisition import (
+        EfficientGlobalOptimization,
+        MonteCarloExpectedImprovement,
+        generate_continuous_optimizer,
+    )
+    from trieste_tpu_torch.models.gp import build_gpr_mcmc
+    from trieste_tpu_torch.models.gp import mcmc
+    from trieste_tpu_torch.models.gp.posterior import build_cache, predict_f_reference
+    from trieste_tpu_torch.ops import fused_predict as fp
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    fp.launches = 0
+    model = build_gpr_mcmc(data, space, optimize_generator=torch.Generator(device=dev).manual_seed(2))
+    result, fit_seconds = timed(lambda: model.optimize(data))
+    print(f"phase 27 GPR-MCMC fit (Hartmann6, {len(data)} points, capacity {data.capacity}, "
+          f"{result.samples.shape[0]} chains x {result.samples.shape[1]} samples after "
+          f"{model._num_warmup} warmup, {model.num_hyper_samples} retained, fp32): "
+          f"{fit_seconds:.2f} s; accept rate per chain {[round(v, 3) for v in result.accept_rate.tolist()]}, "
+          f"step sizes {[round(v, 4) for v in result.step_size.tolist()]}, non-finite log-posterior "
+          f"evaluations {result.num_nonfinite.tolist()}")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pool = space.sample(gen, N)
+    stack, X, Y, mask = model.params_stack, data.query_points, data.observations, data.mask
+    with torch.no_grad():
+        (mean, var), predict_seconds = timed(lambda: model.predict(pool))
+        kernel = stack.kernel.replace(variance=stack.kernel.variance.double(),
+                                      lengthscales=stack.kernel.lengthscales.double())
+        stack64 = stack.replace(kernel=kernel, noise_variance=stack.noise_variance.double(),
+                                mean_constant=stack.mean_constant.double())
+        caches = model.posterior_caches
+        same = caches.replace(X=caches.X.double(), L=caches.L.double(), alpha=caches.alpha.double())
+        em, ev, rm, rv, ok = compare((mean, var), mcmc._mixture_predict(stack64, same, pool.double()))
+        caches64 = build_cache(stack64, X.double(), Y.double(), mask, with_linvt=False)
+        fem, fev, _, _, _ = compare((mean, var), mcmc._mixture_predict(stack64, caches64, pool.double()))
+        gpr64 = fp64_state(model_gpr.params, model_gpr.dataset)
+        exact = predict_f_reference(model_gpr.params, model_gpr.posterior_cache, pool)
+        gem, gev, _, _, _ = compare(exact, predict_f_reference(*gpr64, pool.double()))
+    print(f"phase 27 mixture of {model.num_hyper_samples} samples at {N} pool rows (fp32, "
+          f"{predict_seconds:.3f} s) vs the fp64 plain mixture on the same stack and factors: "
+          f"mean abs {em:.3e} rel {rm:.3e}, var abs {ev:.3e} rel {rv:.3e}, tolerance mean rtol "
+          f"{MEAN_RTOL} atol {MEAN_ATOL}, var rtol {VAR_RTOL} atol {VAR_ATOL} "
+          f"{'ok' if ok else 'OUT OF TOLERANCE'}; against fp64 factors of the same stack (the fp32 "
+          f"Cholesky's error included) mean abs {fem:.3e}, var abs {fev:.3e}, beside phase 5's GP "
+          f"by the same exact path: mean abs {gem:.3e}, var abs {gev:.3e}")
+    if not ok:
+        fail("phase 27: the fp32 mixture disagrees with its fp64 plain version")
+    chunk = max(1, min(model.num_hyper_samples, mcmc.MIXTURE_CHUNK_BYTES // (N * data.capacity * 4)))
+    chunk_bytes = chunk * N * data.capacity * 4
+    # the Gram's temporaries (r², r, z and the Matérn polynomial) at most five chunks at a
+    # time, the triangular solve's input and output one more each; the MC samples [N, S]
+    reckoned = 7 * chunk_bytes + 3 * N * GPR_MCMC_MC_SAMPLES * 4
+    del same, caches64, stack64, exact, gpr64, mean, var
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rule = EfficientGlobalOptimization(
+        MonteCarloExpectedImprovement(GPR_MCMC_MC_SAMPLES),
+        optimizer=generate_continuous_optimizer(num_initial_samples=N),
+    )
+    point, acquire_seconds = timed(lambda: rule.acquire_single(space, model, data, generator=gen))
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"phase 27 MC EI ({GPR_MCMC_MC_SAMPLES} samples) acquire at {N} seeds: "
+          f"{acquire_seconds:.2f} s, point {[round(v, 4) for v in point[0].tolist()]}; peak "
+          f"{peak / 1e9:.3f} GB above the model against {reckoned / 1e9:.3f} GB reckoned "
+          f"({chunk} samples a chunk of {chunk_bytes / 1e9:.3f} GB; the JAX mixture's vmap forms "
+          f"two [{model.num_hyper_samples}, {N}, {data.capacity}] tensors, "
+          f"{2 * model.num_hyper_samples * N * data.capacity * 4 / 1e9:.1f} GB); kernel launches "
+          f"{fp.launches}")
+    if not (bool(torch.isfinite(point).all()) and bool(space.contains(point).all())):
+        fail("phase 27: the acquired point is not finite or not in the box")
+    if fp.launches:
+        fail(f"phase 27: the GPR-MCMC paths launched the fused kernel {fp.launches} times")
+    memory_line("phase 27", reckoned, t_phase)
+    return fp.launches
+
+
+def summaries_profiling_objectives(dev) -> int:
+    """Phase 28: a three-step quickstart with a JSON-lines writer, held to the JAX loop's
+    summary names and to one device-to-host transfer per flush; a profiler trace of one
+    more step; the new objectives on the card. Returns the quickstart's kernel launches."""
+    import tempfile
+    import warnings
+
+    from trieste_tpu_torch import BayesianOptimizer, logging, profiling
+    from trieste_tpu_torch import bayesian_optimizer as loop
+    from trieste_tpu_torch import objectives
+    from trieste_tpu_torch.models.gp import build_gpr
+    from trieste_tpu_torch.objectives import ScaledBranin, mk_observer
+    from trieste_tpu_torch.ops import fused_predict as fp
+
+    t_phase = time.perf_counter()
+    space = ScaledBranin.search_space.to(dev)
+    observer = mk_observer(ScaledBranin.objective)
+    gen = torch.Generator(device=dev).manual_seed(QUICKSTART_SEED)
+    initial = observer(space.sample(gen, 5))
+    model = build_gpr(initial, space)
+    flushes = []
+    flush = loop.flush_deferred_summaries
+
+    def counted_flush(force=False):
+        """The loop's flush with the synchronizing calls it makes counted."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                flush(force)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            seconds = time.perf_counter() - t0
+        flushes.append((sum("called a synchronizing CUDA operation" in str(w.message) for w in caught),
+                        seconds))
+
+    loop.flush_deferred_summaries = counted_flush
+    try:
+        with tempfile.TemporaryDirectory() as logdir:
+            writer = logging.JsonlSummaryWriter(logdir)
+            fp.launches = 0
+            with logging.tensorboard_writer(writer), logging.step_number(0):
+                result = BayesianOptimizer(observer, space).optimize(
+                    3, initial, model, generator=gen, track_state=False)
+            writer.close()
+            launches = fp.launches
+            with open(Path(logdir) / "events.jsonl") as f:
+                events = [json.loads(line) for line in f]
+            if not result.is_ok:
+                fail(f"phase 28: the quickstart failed: {result.final_result.error!r}")
+            t0 = time.perf_counter()
+            with profiling.trace(str(Path(logdir) / "trace")):
+                traced = BayesianOptimizer(observer, space).optimize(
+                    1, result.try_get_final_dataset(), model, generator=gen, track_state=False,
+                    fit_initial_model=False)
+                torch.cuda.synchronize()
+            trace_seconds = time.perf_counter() - t0
+            (trace_path,) = (Path(logdir) / "trace").iterdir()
+            trace_bytes = trace_path.stat().st_size
+            trace = json.loads(trace_path.read_text())
+    finally:
+        loop.flush_deferred_summaries = flush
+    by_step = {}
+    for event in events:
+        by_step.setdefault(event["step"], []).append(event["tag"])
+    want = {0: sorted(QUICKSTART_SUMMARIES_AT_STEP_0),
+            **{step: sorted(QUICKSTART_SUMMARIES_PER_STEP) for step in (1, 2, 3)}}
+    got = {step: sorted(names) for step, names in by_step.items()}
+    print(f"phase 28 quickstart with a JSON-lines writer (3 steps): {len(events)} events, "
+          f"{ {step: len(names) for step, names in sorted(got.items())} } by step; the JAX "
+          f"loop's names at every step: {got == want}; flushes (synchronizing calls, s): "
+          f"{[(n, round(sec, 5)) for n, sec in flushes]}; kernel launches {launches}")
+    if got != want:
+        fail(f"phase 28: the summary names differ from the JAX loop's: got {got}, want {want}")
+    if [n for n, _ in flushes] != [1, 1, 1]:
+        fail(f"phase 28: a flush did not make exactly one device-to-host transfer: {flushes}")
+    if not traced.is_ok:
+        fail(f"phase 28: the traced step failed: {traced.final_result.error!r}")
+    kernels = {}
+    for event in trace["traceEvents"]:
+        if event.get("cat") == "kernel":
+            kernels[event["name"]] = kernels.get(event["name"], 0) + 1
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
+    print(f"phase 28 profiler trace of one more step ({trace_seconds:.2f} s with the export, "
+          f"{trace_bytes / 1e6:.1f} MB, {len(trace['traceEvents'])} events): "
+          f"{sum(kernels.values())} CUDA kernel events of "
+          f"{len(kernels)} kernels, most launched {[(name[:60], n) for name, n in top]}")
+    if not kernels:
+        fail("phase 28: the profiler trace names no CUDA kernel")
+    worst = 0.0
+    for name in NEW_OBJECTIVES:
+        problem = getattr(objectives, name)
+        on_card = problem.objective(torch.as_tensor(problem.minimizers, dtype=torch.float32, device=dev))
+        plain = problem.objective(torch.as_tensor(problem.minimizers, dtype=torch.float64))
+        err = float((on_card.cpu().double() - plain).abs().max())
+        limit = OBJECTIVE_FP32_RTOL * max(1.0, float(plain.abs().max()))
+        worst = max(worst, err / limit)
+        if err > limit:
+            fail(f"phase 28: {name} on the card is {err:.3e} from its fp64 value (limit {limit:.3e})")
+    print(f"phase 28 objectives at their minimizers on the card (fp32) vs fp64 on the CPU: "
+          f"{len(NEW_OBJECTIVES)} of {len(NEW_OBJECTIVES)} within {OBJECTIVE_FP32_RTOL}·max(1, |f|), "
+          f"worst at {worst:.3f} of its limit")
+    print(f"phase 28 seconds: {time.perf_counter() - t_phase:.2f}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2136,6 +2451,12 @@ def main() -> int:
 
         def add_scalar(self, name, value, step):
             self.values.setdefault(name, []).append((step, value))
+
+        def add_histogram(self, name, values, step):
+            """Histograms are not kept."""
+
+        def add_text(self, name, text, step):
+            """Text is not kept."""
 
     observer = mk_observer(Hartmann6.objective)
     space = Hartmann6.search_space
@@ -2471,8 +2792,16 @@ def main() -> int:
     )
     print(f"phases 22-25 seconds: {time.perf_counter() - t_new:.2f}; phases 1-25 seconds: "
           f"{time.perf_counter() - t_start:.2f}")
+    t_new = time.perf_counter()
+    gpr_mcmc_launches = converge_gpr_mcmc(dev)
+    gpr_mcmc_full_width_launches = gpr_mcmc_full_width(
+        hartmann_model, hartmann_data, hartmann_space, dev
+    )
+    summaries_launches = summaries_profiling_objectives(dev)
+    print(f"phases 26-28 seconds: {time.perf_counter() - t_new:.2f}")
+    print(f"phases 1-28 seconds: {time.perf_counter() - t_start:.2f}")
 
-    # -- phase 26: kernels -----------------------------------------------------------
+    # -- phase 29: kernels -----------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "fused_predict",
         "route": "cuda",
@@ -2497,6 +2826,9 @@ def main() -> int:
         "launches_multifidelity": multifidelity_launches,
         "launches_multifidelity_full_width": multifidelity_full_width_launches,
         "launches_encoded_full_width": encoded_launches,
+        "launches_gpr_mcmc": gpr_mcmc_launches,
+        "launches_gpr_mcmc_full_width": gpr_mcmc_full_width_launches,
+        "launches_summaries_quickstart": summaries_launches,
         "max_abs_err": max_abs_err,
         "white_noise_abs_err": white_noise["abs_err"],
         "white_noise_plain_fp32_abs_err": white_noise["plain_fp32_abs_err"],

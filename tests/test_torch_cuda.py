@@ -706,3 +706,133 @@ def test_nargp_propagation_is_one_launch_per_level(device):
     mean, var = model.predict(pool)
     assert fp.launches == before + 2
     assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())
+
+
+def _mcmc_on(device, n=20, capacity=32):
+    """A fully-Bayesian GP on ``n`` ScaledBranin-like points in fp32 on the card, and its
+    log posterior's template."""
+    from trieste_tpu_torch.data import Dataset
+    from trieste_tpu_torch.models.gp import build_gpr_mcmc
+    from trieste_tpu_torch.space import Box
+
+    g = torch.Generator(device=device).manual_seed(4)
+    X = torch.rand(n, 2, generator=g, device=device)
+    data = Dataset.from_arrays(X, torch.sin(5 * X[:, :1]) + X[:, 1:] ** 2, capacity=capacity)
+    model = build_gpr_mcmc(data, Box([0.0, 0.0], [1.0, 1.0], device=device), likelihood_variance=1e-6,
+                           num_chains=3, num_samples_per_chain=5, num_warmup=5, num_retained=6,
+                           optimize_generator=torch.Generator(device=device).manual_seed(0))
+    return model, data
+
+
+def _chains_on(device):
+    """A function running 3 chains of 10 transitions (5 of warmup) over the GP log
+    posterior, their momenta and uniforms drawn once."""
+    from trieste_tpu_torch.models.gp import mcmc
+    from trieste_tpu_torch.models.gp.training import pack_params
+
+    model, data = _mcmc_on(device)
+    u0 = pack_params(model._template)
+    jitter, momenta, uniforms = mcmc._draw_chains(torch.Generator(device=device).manual_seed(1), 3, 10, u0)
+    return lambda: mcmc._run_chains_from_draws(model._template, data.query_points, data.observations,
+                                               data.mask, u0, jitter, momenta, uniforms, 5)
+
+
+def test_hmc_transitions_read_nothing_back_from_the_card(device, monkeypatch):
+    """Everything but the one capture of the transition's CUDA graph runs with a
+    synchronizing call raising: the first evaluation, every replay and the step-size
+    adaptation."""
+    from trieste_tpu_torch.ops import hmc
+
+    capture = hmc._transition_runner
+
+    def capture_unchecked(*args):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return capture(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(hmc, "_transition_runner", capture_unchecked)
+    run = _chains_on(device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        result = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert result.samples.shape[:2] == (3, 5) and bool(torch.isfinite(result.samples).all())
+    assert bool((result.accept_rate >= 0).all()) and bool(torch.isfinite(result.step_size).all())
+
+
+def test_the_graphed_transitions_are_the_eager_ones(device, monkeypatch):
+    from functools import partial
+
+    from trieste_tpu_torch.ops import hmc
+
+    run = _chains_on(device)
+    graphed = run()
+    monkeypatch.setattr(hmc, "_transition_runner",
+                        lambda log_prob, num_leapfrog, state: partial(hmc._transition, log_prob, num_leapfrog, state))
+    eager = run()
+    for got, want in zip(graphed, eager):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_a_flush_of_mixed_deferred_summaries_makes_one_transfer(device):
+    import warnings
+
+    from trieste_tpu_torch import logging
+
+    class Recorder:
+        def __init__(self):
+            self.events = []
+
+        def add_scalar(self, name, value, step):
+            self.events.append((name, value))
+
+        def add_histogram(self, name, values, step):
+            self.events.append((name, values.shape))
+
+    x = torch.arange(12.0, device=device).reshape(3, 4)
+    rec = Recorder()
+    with logging.tensorboard_writer(rec):
+        logging.deferred_scalar("s", x.sum())
+        logging.deferred_scalar("closure", lambda: x.max())
+        logging.deferred_scalar_vector(["a", "b", "c"], x[:, 0])
+        logging.deferred_histogram("h", x)
+        logging.deferred_histogram("h64", x.double())
+        logging.deferred_scalar("host", 2.0)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                logging.flush_deferred_summaries()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    assert sum("called a synchronizing CUDA operation" in str(w.message) for w in caught) == 1
+    assert dict(rec.events) == {"s": 66.0, "closure": 11.0, "a": 0.0, "b": 4.0, "c": 8.0,
+                                "h": (3, 4), "h64": (3, 4), "host": 2.0}
+
+
+def test_gpr_mcmc_prediction_on_a_pool_launches_no_kernel(device):
+    """The mixture at 4096 rows (over the fused gate's size) goes by the exact path, held to
+    the fp64 mixture of the same samples and factors."""
+    from trieste_tpu_torch.models.gp import mcmc
+
+    model, data = _mcmc_on(device)
+    model.optimize(data)
+    pool = torch.rand(4096, 2, generator=torch.Generator(device=device).manual_seed(5), device=device)
+    before = fp.launches
+    mean, var = model.predict(pool)
+    assert fp.launches == before
+    stack = model.params_stack
+    stack64 = stack.replace(
+        kernel=stack.kernel.replace(variance=stack.kernel.variance.double(),
+                                    lengthscales=stack.kernel.lengthscales.double()),
+        noise_variance=stack.noise_variance.double(), mean_constant=stack.mean_constant.double())
+    caches = model.posterior_caches
+    caches64 = caches.replace(X=caches.X.double(), L=caches.L.double(), alpha=caches.alpha.double())
+    want_mean, want_var = mcmc._mixture_predict(stack64, caches64, pool.double())
+    torch.testing.assert_close(mean.double(), want_mean, **MEAN_TOL)
+    torch.testing.assert_close(var.double(), want_var, **VAR_TOL)

@@ -7,8 +7,8 @@ batch; confidence bounds; entropy search; active learning; greedy batches), Thom
 sampling (discrete and continuous), the continuous, relaxed and discrete acquisition
 optimizers, the point-selection rules (``EfficientGlobalOptimization``,
 ``DiscreteThompsonSampling``, the asynchronous rules, the trust-region fleets), and the two
-loops, ``BayesianOptimizer`` and ``AskTellOptimizer``, with the fused prediction kernel in
-CUDA for Hopper. Entry points work on ``cuda`` unless the caller puts its tensors (or its
+loops, ``BayesianOptimizer`` and ``AskTellOptimizer`` with their summaries
+(:mod:`~trieste_tpu_torch.logging`), with the fused prediction kernel in CUDA for Hopper. Entry points work on ``cuda`` unless the caller puts its tensors (or its
 space) on the CPU.
 """
 from .ask_tell_optimization import (

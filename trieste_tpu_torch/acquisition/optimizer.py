@@ -234,7 +234,7 @@ def generate_continuous_optimizer(
             acq, make_seeds(), lower, upper, R, max_iters, discrete_mask, residual_fn
         )
         scalar("spo_af_evaluations", N + R * max_iters)
-        deferred_scalar("spo_improvement_on_initial_samples", lambda: float(improvement.sum()))
+        deferred_scalar("spo_improvement_on_initial_samples", lambda: improvement.sum())
 
         # recovery runs: retry with fresh seeds while no finite value was found
         recoveries = 0

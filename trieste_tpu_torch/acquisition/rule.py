@@ -198,7 +198,7 @@ class EfficientGlobalOptimization(AcquisitionRule):
                 )
                 points = torch.cat([points, chosen])
         # deferred: read at the loop's per-step flush, not in the middle of the step
-        deferred_histogram("EGO.query_points", lambda: points.detach().cpu().numpy())
+        deferred_histogram("EGO.query_points", points)
         return points
 
     def __repr__(self) -> str:

@@ -2,9 +2,11 @@
 
 Per step: early-stop check → record the state → ``rule.acquire`` (a rule with state
 returns a function of it) → observer → dataset append → ``rule.filter_datasets`` → model
-update and training → summaries. Any exception ends the run as an ``Err`` result that
-carries the history so far. Records and results are saved with ``torch.save`` and loaded
-with ``torch.load``; load only files that this package wrote.
+update and training → summaries (with a writer set: each model's ``log``, the
+observations and query points, the wall clocks, then one flush of what the step queued).
+Any exception ends the run as an ``Err`` result that carries the history so far. Records
+and results are saved with ``torch.save`` and loaded with ``torch.load``; load only files
+that this package wrote.
 
 A rule with local datasets (a trust-region fleet) gets its regions and one local copy of
 each global dataset at step 0; its ``[B, V, D]`` points are observed through
@@ -26,11 +28,14 @@ from .acquisition.rule import LocalDatasetsAcquisitionRule
 from .acquisition.utils import with_local_datasets
 from .data import Dataset
 from .logging import (
+    deferred_histogram,
     deferred_scalar,
     flush_deferred_summaries,
     get_tensorboard_writer,
     scalar,
     set_step_number,
+    step_number,
+    text,
 )
 from .models.interfaces import ProbabilisticModel, TrainableProbabilisticModel
 from .objectives.utils import mk_batch_observer
@@ -251,6 +256,9 @@ class BayesianOptimizer:
                 optimize_model_and_save_result(model, tag_data)
 
         history: list = []
+        if get_tensorboard_writer() is not None:
+            text("metadata", f"Observer: {self._observer}\nSearch space: {self._search_space}\n"
+                             f"Device: {_describe(next(iter(datasets.values())).device)}")
         step = start_step
         try:
             if isinstance(acquisition_rule, LocalDatasetsAcquisitionRule) and start_step == 0:
@@ -260,7 +268,8 @@ class BayesianOptimizer:
             if fit_model and fit_initial_model and start_step == 0:
                 with Timer() as initial_fit_timer:
                     fit(filtered_datasets)
-                scalar("wallclock/model_fitting", initial_fit_timer.time)
+                with step_number(0):
+                    scalar("wallclock/model_fitting", initial_fit_timer.time)
 
             for step in range(start_step + 1, num_steps + 1):
                 set_step_number(step)
@@ -313,11 +322,12 @@ class BayesianOptimizer:
                             fit(filtered_datasets)
 
                 if get_tensorboard_writer() is not None:
+                    write_summary_observations(datasets, models, tagged_output, fit_timer)
+                    write_summary_query_points(datasets)
                     scalar("wallclock/step", step_timer.time)
                     scalar("wallclock/query_point_generation", acquire_timer.time)
                     scalar("wallclock/observation", observation_timer.time)
-                    scalar("wallclock/model_fitting", fit_timer.time)
-                    flush_deferred_summaries()
+                    flush_deferred_summaries()  # one read of every queued device value
 
         except Exception as error:  # noqa: BLE001 - the loop reports every failure as Err
             print(traceback.format_exc())
@@ -365,8 +375,53 @@ def optimize_model_and_save_result(model: TrainableProbabilisticModel, dataset: 
     """Train a model and queue its final loss as a summary."""
     result = model.optimize(dataset)
     if hasattr(result, "loss"):
-        deferred_scalar("model.training_loss", lambda: float(result.loss))
+        deferred_scalar("model.training_loss", result.loss)
     return result
+
+
+def _describe(device: torch.device) -> str:
+    if device.type == "cuda":
+        return f"{device} ({torch.cuda.get_device_name(device)})"
+    return str(device)
+
+
+def write_summary_observations(
+    datasets: Mapping[Tag, Dataset],
+    models: Mapping[Tag, ProbabilisticModel],
+    tagged_output: Mapping[Tag, Dataset],
+    model_fitting_timer: Timer,
+) -> None:
+    """Queue each global tag's model summaries (its ``log``) and, per output dimension, its
+    new observations with the best of them and the best overall; write the fit's wall
+    clock."""
+    for tag, dataset in ignoring_local_tags(datasets).items():
+        obs = dataset.trimmed_observations
+        if obs.shape[0] == 0:
+            continue
+        model = models.get(tag)
+        if model is not None and hasattr(model, "log"):
+            try:
+                model.log(dataset)
+            except Exception as e:  # noqa: BLE001 - a summary never stops the loop
+                print(f"failed to log model {tag}: {e}")
+        L = obs.shape[-1]
+        new_obs = tagged_output[tag].trimmed_observations if tag in tagged_output else obs[:0]
+        for i in range(L):
+            suffix = f"[{i}]" if L > 1 else ""
+            if new_obs.shape[0]:
+                deferred_histogram(f"{tag}.observation{suffix}/new_observations", new_obs[..., i])
+                deferred_scalar(f"{tag}.observation{suffix}/best_new_observation",
+                                torch.min(new_obs[..., i]))
+            deferred_scalar(f"{tag}.observation{suffix}/best_overall", torch.min(obs[..., i]))
+    scalar("wallclock/model_fitting", model_fitting_timer.time)
+
+
+def write_summary_query_points(datasets: Mapping[Tag, Dataset]) -> None:
+    """Queue a histogram of each global tag's query points per input dimension."""
+    for tag, dataset in ignoring_local_tags(datasets).items():
+        qp = dataset.trimmed_query_points
+        for i in range(qp.shape[-1] if qp.shape[0] else 0):
+            deferred_histogram(f"{tag}.query_points/[{i}]", qp[:, i])
 
 
 def _host(x) -> np.ndarray:

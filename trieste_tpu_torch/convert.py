@@ -25,6 +25,7 @@ from .acquisition.trust_region import (
 )
 from .data import Dataset
 from .models.gp.gpr import GaussianProcessRegression
+from .models.gp.mcmc import GaussianProcessRegressionMCMC
 from .models.gp.likelihoods import BernoulliLikelihood, GaussianLikelihood, PoissonLikelihood
 from .models.gp.multifidelity import (
     MultifidelityAutoregressive,
@@ -64,6 +65,28 @@ def gpr_params_from_numpy(
         noise_variance=_tensor(noise_variance, device, variance.dtype),
         mean_constant=_tensor(mean_constant, device, variance.dtype),
     )
+
+
+def gpr_mcmc_from_numpy(
+    template: Mapping[str, Any],
+    params_stack: Mapping[str, Any],
+    dataset: Mapping[str, Any],
+    *,
+    device: Device = "cuda",
+    dtype: Optional[torch.dtype] = None,
+    **model_kwargs,
+) -> GaussianProcessRegressionMCMC:
+    """A fully-Bayesian GPR from numpy: its prior's ``template`` and its stacked samples
+    ``params_stack`` (leading ``[S]`` on every value) as keyword arguments of
+    :func:`gpr_params_from_numpy`, ``dataset`` those of :func:`dataset_from_numpy`;
+    ``model_kwargs`` go to :class:`GaussianProcessRegressionMCMC`."""
+    model = GaussianProcessRegressionMCMC(
+        gpr_params_from_numpy(**template, device=device, dtype=dtype),
+        dataset_from_numpy(**dataset, device=device, dtype=dtype),
+        **model_kwargs,
+    )
+    model.params_stack = gpr_params_from_numpy(**params_stack, device=device, dtype=dtype)
+    return model
 
 
 def sgpr_params_from_numpy(

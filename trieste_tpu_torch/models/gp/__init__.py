@@ -1,6 +1,6 @@
 """Gaussian-process models (counterpart of :mod:`trieste_tpu.models.gp`): the exact GP, the
 sparse SGPR and SVGP with their inducing-point selectors, the variational GP with its
-likelihoods, and the multifidelity models."""
+likelihoods, the fully-Bayesian GP and the multifidelity models."""
 from .builders import (
     MAX_NUM_INDUCING_POINTS,
     NUM_INDUCING_POINTS_PER_DIM,
@@ -10,6 +10,7 @@ from .builders import (
     default_gpr_params,
 )
 from .gpr import GaussianProcessRegression
+from .mcmc import GaussianProcessRegressionMCMC, build_gpr_mcmc
 from .likelihoods import BernoulliLikelihood, GaussianLikelihood, PoissonLikelihood
 from .multifidelity import (
     MultifidelityAutoregressive,

@@ -194,18 +194,22 @@ class GaussianProcessRegression:
         return RandomFourierFeatureTrajectorySampler(self, self._num_rff_features)
 
     def log(self, dataset: Optional[Dataset] = None) -> None:
-        """Queue the hyperparameters as summaries (read at the loop's per-step flush)."""
-        from ...logging import deferred_scalar, get_tensorboard_writer
+        """Queue the hyperparameters (the lengthscales as one vector) and, given a dataset,
+        the accuracy of the predictions over it, as summaries read at the loop's per-step
+        flush."""
+        from ...logging import deferred_scalar, deferred_scalar_vector, get_tensorboard_writer
 
         if get_tensorboard_writer() is None:
             return
         params = self._params
-        deferred_scalar("kernel.variance", lambda: float(params.kernel.variance))
-        for i in range(params.kernel.lengthscales.shape[0]):
-            deferred_scalar(
-                f"kernel.lengthscale[{i}]", lambda i=i: float(params.kernel.lengthscales[i])
-            )
-        deferred_scalar("likelihood.variance", lambda: float(params.noise_variance))
+        deferred_scalar("kernel.variance", params.kernel.variance)
+        ls = params.kernel.lengthscales
+        deferred_scalar_vector([f"kernel.lengthscale[{i}]" for i in range(ls.shape[0])], ls)
+        deferred_scalar("likelihood.variance", params.noise_variance)
+        if dataset is not None:
+            from ..utils import write_summary_data_based_metrics
+
+            write_summary_data_based_metrics(dataset, self)
 
     def __repr__(self) -> str:
         return (

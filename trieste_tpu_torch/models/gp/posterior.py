@@ -63,10 +63,11 @@ def build_cache(
     with_linvt: bool = True,
 ) -> GPRCache:
     """Factorize the training covariance. ``with_linvt=False`` skips the O(C³) triangular
-    inverse that only the fused prediction kernel uses."""
+    inverse that only the fused prediction kernel uses; it also takes hyperparameters with
+    leading batch dims ``[...]``, and gives ``L [..., C, C]`` and ``alpha [..., C, P]``."""
     m = mask.to(X.dtype)
     L = _noisy_cholesky(params, X, mask)
-    ym = (Y - params.mean_constant) * m[:, None]
+    ym = (Y - params.mean_constant[..., None, None]) * m[:, None]
     alpha = cho_solve(L, ym)
     if not with_linvt:
         return GPRCache(X=X, mask=mask, L=L, alpha=alpha, LinvT=None)

@@ -34,3 +34,10 @@ def filter_finite(query_points: torch.Tensor, observations: torch.Tensor) -> Dat
         )
     keep = torch.isfinite(observations).all(dim=-1)
     return Dataset.from_arrays(query_points[keep], observations[keep])
+
+
+def map_is_finite(query_points: torch.Tensor, observations: torch.Tensor) -> Dataset:
+    """A dataset of the query points and, for each, 1 where every observation is finite
+    and 0 where one is not (in the query points' dtype)."""
+    ok = torch.isfinite(observations).all(dim=-1, keepdim=True)
+    return Dataset.from_arrays(query_points, ok.to(query_points.dtype))

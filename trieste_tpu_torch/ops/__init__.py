@@ -1,2 +1,3 @@
 """Numerical building blocks: stationary kernels, masked linear algebra, batched
-L-BFGS and the fused prediction kernel."""
+L-BFGS, Hamiltonian Monte Carlo and the fused prediction kernel."""
+from .hmc import HMCResults, hmc_sample

@@ -61,6 +61,12 @@ MAX_OUTPUTS = 8
 launches = 0
 """Number of kernel launches made by :func:`launch` in this process."""
 
+builds = 0
+"""Number of times :func:`build` ran the compiler in this process."""
+
+loads = 0
+"""Number of times :func:`library` loaded a built library in this process."""
+
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_predict.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _NVCC_FLAGS = (
@@ -91,9 +97,11 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile ``csrc/fused_predict.cu`` unless this source is built already; raise on
     any compiler failure."""
+    global builds
     target = library_path()
     if target.exists():
         return target
+    builds += 1
     nvcc = _nvcc()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
@@ -130,10 +138,11 @@ def bind(path: Path) -> ctypes.CDLL:
 
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
-    global _lib
+    global _lib, loads
     with _lib_lock:
         if _lib is None:
             _lib = bind(build())
+            loads += 1
         return _lib
 
 

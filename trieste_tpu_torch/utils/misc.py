@@ -1,6 +1,6 @@
 """Miscellaneous core utilities (counterpart of :mod:`trieste_tpu.utils.misc`): the
 ``Result`` monad, ``Timer``, ``LocalizedTag`` and the tag helpers, the dtype policy,
-``flatten_leading_dims`` and the explicit-generator helpers.
+``flatten_leading_dims``, ``to_numpy`` and the explicit-generator helpers.
 
 >>> Ok(3).unwrap()
 3
@@ -211,3 +211,8 @@ def flatten_leading_dims(
         return y.reshape(tuple(leading) + tuple(y.shape[1:]))
 
     return flat, unflatten
+
+
+def to_numpy(x: torch.Tensor) -> np.ndarray:
+    """``x`` as a numpy array on the host (a copy from the device where it lives there)."""
+    return x.detach().cpu().numpy()
