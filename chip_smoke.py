@@ -178,12 +178,27 @@ Phases, each printing its own lines and its seconds:
    trace of one more step must name a CUDA kernel; every objective added with this phase
    (``NEW_OBJECTIVES``) on the card at its minimizers within 1e-5·max(1, |f|) of its fp64
    value on the CPU;
-29. one JSON line describing each kernel. Its ``max_abs_err`` covers every case held to
+29. the deep models to convergence as the JAX package's integration test sets them up
+   (``tests/integration/test_model_bayesian_optimization.py:48-53,61-65,71-86,107-109``):
+   ScaledBranin from 6 points, EGO with PCTS over 4 points and the default optimizer,
+   ``build_vanilla_deep_gp(num_layers=2, num_train_steps=800)`` within 25 steps and
+   ``build_deep_ensemble(ensemble_size=5, num_train_steps=600)`` within 60, both to rtol
+   0.05 (seeds as in phase 8); each run prints its steps, best value, s/step with the fits
+   and the acquisitions apart, the final training loss, the non-finite losses of its fits
+   and its kernel launches (none: neither model predicts by the exact GP);
+30. the deep models at full width: phase 5's Hartmann6 data (1000 points, capacity 1024),
+   each builder at its defaults (the deep GP: 2 layers, 100 inducing points, width 6, 2000
+   Adam steps, 64 predict samples; the ensemble: 5 members of (25, 25), 1000 steps with the
+   bootstrap): one timed fit, one prediction at 131,072 rows and one PCTS acquire of 4
+   points at 131,072 seeds and 60 runs, each with its peak memory beside the bytes
+   reckoned; no kernel launch; then an import of the experimental plotting, which finds
+   neither matplotlib nor plotly on a machine without them;
+31. one JSON line describing each kernel. Its ``max_abs_err`` covers every case held to
    the contract, including the kernel on the fitted models that phases 4 to 7, 12, 14 to
    17, 19 and 25 leave behind; the white-noise case has keys of its own.
 
-Phases 6 to 28 each print their seconds and phases 11 to 28 their kernel launches; phases 6
-to 21, 23 and 25 to 27 the bytes reckoned for their largest tensors and
+Phases 6 to 30 each print their seconds and phases 11 to 30 their kernel launches; phases 6
+to 21, 23, 25 to 27 and 29 to 30 the bytes reckoned for their largest tensors and
 ``torch.cuda.max_memory_allocated()``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -296,6 +311,11 @@ NEW_OBJECTIVES = ("GramacyLee", "LogarithmicGoldsteinPrice", "Hartmann3", "Sheke
                   "Rosenbrock4", "Ackley5", "Michalewicz2", "Michalewicz5", "Michalewicz10",
                   "Trid10")
 OBJECTIVE_FP32_RTOL = 1e-5
+# Phase 29: the deep models' envelopes of the JAX package's integration test
+# (tests/integration/test_model_bayesian_optimization.py:48-53,61-65,107-109)
+DEEP_GP_STEPS = 25
+DEEP_ENSEMBLE_STEPS = 60
+DEEP_MODEL_RTOL = 0.05
 
 
 def fail(msg: str) -> None:
@@ -1928,6 +1948,21 @@ def encoded_hartmann(dev):
     return space, objective
 
 
+def timed_fits(model):
+    """Wrap ``model.optimize`` so that each fit's seconds and result are kept; returns the
+    list they go to."""
+    fits = []
+    fit = model.optimize
+
+    def timed_fit(dataset):
+        result, seconds = timed(lambda: fit(dataset))
+        fits.append((seconds, result))
+        return result
+
+    model.optimize = timed_fit
+    return fits
+
+
 def converge_gpr_mcmc(dev) -> int:
     """Phase 26: the fully-Bayesian GP to the minimum of ScaledBranin as the JAX package's
     integration test sets it up; returns seed 0's kernel launches (none is expected: the
@@ -1952,15 +1987,7 @@ def converge_gpr_mcmc(dev) -> int:
         initial = observer(space.sample(gen, 6))
         model = build_gpr_mcmc(initial, space, optimize_generator=torch.Generator(device=dev).manual_seed(seed),
                                **GPR_MCMC_CONFIG)
-        fits = []
-        sample_hyperparameters = model.optimize
-
-        def timed_fit(dataset):
-            result, seconds = timed(lambda: sample_hyperparameters(dataset))
-            fits.append((seconds, result))
-            return result
-
-        model.optimize = timed_fit
+        fits = timed_fits(model)
         fp.launches = 0
         t0 = time.perf_counter()
         result = BayesianOptimizer(observer, space).optimize(
@@ -2189,6 +2216,182 @@ def summaries_profiling_objectives(dev) -> int:
           f"worst at {worst:.3f} of its limit")
     print(f"phase 28 seconds: {time.perf_counter() - t_phase:.2f}")
     return launches
+
+
+def deep_model_builders():
+    """Phase 29's models as the JAX package's integration test builds them
+    (``tests/integration/test_model_bayesian_optimization.py:48-53``), each with its step
+    budget: ``(budget, build(initial, space, generator))``."""
+    from trieste_tpu_torch.models.deepgp import build_vanilla_deep_gp
+    from trieste_tpu_torch.models.ensembles import build_deep_ensemble
+
+    return {
+        "DGP": (DEEP_GP_STEPS, lambda data, space, gen: build_vanilla_deep_gp(
+            data, space, num_layers=2, num_train_steps=800, generator=gen)),
+        "deep ensemble": (DEEP_ENSEMBLE_STEPS, lambda data, space, gen: build_deep_ensemble(
+            data, ensemble_size=5, num_train_steps=600, generator=gen)),
+    }
+
+
+def converge_deep_models(dev) -> int:
+    """Phase 29: the deep GP and the deep ensemble to the minimum of ScaledBranin with PCTS
+    over 4 points, as the JAX package's integration test sets them up; returns seed 0's
+    kernel launches over both (none is expected: neither model predicts by the exact GP)."""
+    from trieste_tpu_torch import BayesianOptimizer, stop_at_minimum
+    from trieste_tpu_torch.acquisition import (
+        EfficientGlobalOptimization,
+        ParallelContinuousThompsonSampling,
+    )
+    from trieste_tpu_torch.objectives import ScaledBranin, mk_observer
+    from trieste_tpu_torch.ops import fused_predict as fp
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    space = ScaledBranin.search_space.to(dev)
+    observer = mk_observer(ScaledBranin.objective)
+    minimum = float(ScaledBranin.minimum[0])
+    launches = 0
+    for name, (budget, build) in deep_model_builders().items():
+        def run(seed):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            initial = observer(space.sample(gen, 6))
+            model = build(initial, space, torch.Generator(device=dev).manual_seed(seed))
+            fits = timed_fits(model)
+            rule = EfficientGlobalOptimization(ParallelContinuousThompsonSampling(),
+                                               num_query_points=4)
+            fp.launches = 0
+            t0 = time.perf_counter()
+            result = BayesianOptimizer(observer, space).optimize(
+                budget, initial, model, rule, generator=gen, track_state=False,
+                early_stop_callback=stop_at_minimum(ScaledBranin.minimum,
+                                                    minimum_rtol=DEEP_MODEL_RTOL))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if not result.is_ok:
+                fail(f"phase 29 {name}: the run failed: {result.final_result.error!r}")
+            final = result.try_get_final_dataset()
+            steps = (len(final) - 6) // 4
+            best = float(final.trimmed_observations.min())
+            rel = relative_error(best, minimum)
+            ok = rel <= DEEP_MODEL_RTOL
+            fit_seconds = sum(s for s, _ in fits)
+            nonfinite = sum(int(r.num_nonfinite) for _, r in fits)
+            print(f"phase 29 {name} with PCTS over 4 points on ScaledBranin (fp32), seed {seed}: "
+                  f"{steps} steps of {budget}, best {best:.6f}, rel err {rel:.3e} (limit "
+                  f"{DEEP_MODEL_RTOL}), {seconds / max(steps, 1):.3f} s/step: fit "
+                  f"{fit_seconds / len(fits):.3f} s per fit ({len(fits)} fits, "
+                  f"{fit_seconds / len(fits) / model._num_train_steps * 1e3:.3f} ms per Adam step), "
+                  f"acquire and observe {(seconds - fit_seconds) / max(steps, 1):.3f} s per step; "
+                  f"final training loss {float(fits[-1][1].loss):.4f}, non-finite losses "
+                  f"{nonfinite}; kernel launches {fp.launches} {'ok' if ok else 'MISSED'}")
+            if fp.launches:
+                fail(f"phase 29 {name}: the run launched the fused kernel {fp.launches} times")
+            return ok, fp.launches
+
+        launches += four_of_five(f"phase 29 {name}", run)
+    # a PCTS pool of 5000 seeds x 4 columns through the deep GP's two layers (two columns a
+    # chunk at most: Kux, A and SA of 40 inducing points), and the Adam noise of one fit
+    reckoned = 4 * 5000 * (2 + 2) * 40 * 4 + 800 * 8 * 64 * 3 * 4
+    memory_line("phase 29", reckoned, t_phase)
+    return launches
+
+
+def deep_models_full_width(data, space, dev, N=131072) -> int:
+    """Phase 30: the deep GP and the deep ensemble at their builders' defaults on phase 5's
+    Hartmann6 data (capacity 1024): one fit, one prediction at ``N`` rows and one PCTS
+    acquire of 4 points at ``N`` seeds each; the experimental plotting imported. Returns the
+    kernel launches (none is expected)."""
+    from trieste_tpu_torch.acquisition import (
+        EfficientGlobalOptimization,
+        ParallelContinuousThompsonSampling,
+        generate_continuous_optimizer,
+    )
+    from trieste_tpu_torch.models.deepgp import build_vanilla_deep_gp, deep_gp
+    from trieste_tpu_torch.models.ensembles import build_deep_ensemble
+    from trieste_tpu_torch.ops import fused_predict as fp
+
+    t_phase = time.perf_counter()
+    fp.launches = 0
+    C, D, V = data.capacity, data.dimension, 4
+    gen = torch.Generator(device=dev).manual_seed(30)
+    pool = space.sample(gen, N)
+    models = {
+        "DGP": build_vanilla_deep_gp(data, space, generator=torch.Generator(device=dev).manual_seed(2)),
+        "deep ensemble": build_deep_ensemble(data, generator=torch.Generator(device=dev).manual_seed(2)),
+    }
+    worst = 0.0
+    for name, model in models.items():
+        if name == "DGP":
+            p = model.params
+            M, W, S = p.layers[0].inducing_points.shape[0], p.noise_width, model._num_predict_samples
+            steps = model._num_train_steps
+            block = max(1, min(steps, deep_gp.FIT_NOISE_BLOCK_BYTES // (8 * C * W * 4)))
+            fit_bytes = (block + 1) * 8 * C * W * 4
+            fit_what = f"a block of {block} steps' noise and the step's buffer"
+            chunk = deep_gp._sample_chunk(p, S, N, 4)
+            # the noise of the paths, one chunk's Kux, A and SA, the paths (and their moments)
+            predict_bytes = S * N * W * 4 + chunk * (max(l.q_mu.shape[-1] for l in p.layers) + 2) * M * N * 4 + 2 * S * N * 4
+            acquire_bytes = N * V * D * 4 * 2 + V * N * W * 4 + min(V, deep_gp._sample_chunk(p, V, N, 4)) * 8 * M * N * 4
+            detail = (f"2 layers, M = {M}, width {p.layers[0].q_mu.shape[-1]}, {steps} Adam steps of 8 "
+                      f"paths, {S} predict samples ({chunk} a chunk)")
+        else:
+            E, H = model.ensemble_size, max(model.params.member_params.hidden_units)
+            steps = model._num_train_steps
+            fit_bytes, fit_what = E * C * (8 + 4), "the bootstrap's indices and weights"
+            predict_bytes = 4 * E * N * H * 4  # two hidden activations with their ReLU inputs
+            acquire_bytes = N * V * D * 4 * 2 + 4 * V * N * H * 4
+            detail = (f"E = {E}, hidden {model.params.member_params.hidden_units}, {steps} Adam "
+                      f"steps, bootstrap")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        result, fit_seconds = timed(lambda: model.optimize(data))
+        fit_peak = torch.cuda.max_memory_allocated() - base
+        print(f"phase 30 {name} on Hartmann6 ({len(data)} points, capacity {C}, fp32; {detail}): "
+              f"fit {fit_seconds:.3f} s ({fit_seconds / steps * 1e3:.3f} ms per Adam step), final "
+              f"loss {float(result.loss):.4f}, non-finite losses {int(result.num_nonfinite)}; peak "
+              f"{fit_peak / 1e9:.3f} GB, of which {fit_what} {fit_bytes / 1e9:.3f} GB (the rest, "
+              f"the step's graph and the libraries' workspaces, is not reckoned)")
+        if not bool(torch.isfinite(result.loss)):
+            fail(f"phase 30 {name}: the fit ended at a non-finite loss")
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            (mean, var), predict_seconds = timed(lambda: model.predict(pool))
+        predict_peak = torch.cuda.max_memory_allocated() - base
+        if not (mean.shape == var.shape == (N, 1) and bool(torch.isfinite(mean).all())
+                and bool((var > 0).all())):
+            fail(f"phase 30 {name}: the prediction at {N} rows is not finite and positive")
+        del mean, var
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rule = EfficientGlobalOptimization(
+            ParallelContinuousThompsonSampling(),
+            optimizer=generate_continuous_optimizer(num_initial_samples=N), num_query_points=V,
+        )
+        points, acquire_seconds = timed(lambda: rule.acquire_single(space, model, data, generator=gen))
+        acquire_peak = torch.cuda.max_memory_allocated() - base
+        print(f"phase 30 {name}: predict at {N} rows {predict_seconds:.3f} s, peak "
+              f"{predict_peak / 1e9:.3f} GB against {predict_bytes / 1e9:.3f} GB reckoned; PCTS "
+              f"acquire of {V} points at {N} seeds and {10 * D} runs {acquire_seconds:.3f} s, peak "
+              f"{acquire_peak / 1e9:.3f} GB against {acquire_bytes / 1e9:.3f} GB reckoned; kernel "
+              f"launches so far {fp.launches}")
+        if points.shape != (V, D) or not bool(space.contains(points).all()):
+            fail(f"phase 30 {name}: expected {V} points in the box, got {tuple(points.shape)}")
+        worst = max(worst, predict_peak / predict_bytes, acquire_peak / acquire_bytes)
+    if fp.launches:
+        fail(f"phase 30: a deep model reached the exact GP's kernel ({fp.launches} launches)")
+    import importlib.util
+
+    import trieste_tpu_torch.experimental.plotting as plotting
+
+    print(f"phase 30 trieste_tpu_torch.experimental.plotting imported ({len(plotting.__all__)} "
+          f"names); matplotlib found: {importlib.util.find_spec('matplotlib') is not None}, plotly "
+          f"found: {plotting.PLOTLY_AVAILABLE}")
+    print(f"phase 30 largest peak over its reckoning: {worst:.3f}")
+    print(f"phase 30 seconds: {time.perf_counter() - t_phase:.2f}")
+    return fp.launches
 
 
 def main() -> int:
@@ -2800,8 +3003,13 @@ def main() -> int:
     summaries_launches = summaries_profiling_objectives(dev)
     print(f"phases 26-28 seconds: {time.perf_counter() - t_new:.2f}")
     print(f"phases 1-28 seconds: {time.perf_counter() - t_start:.2f}")
+    t_new = time.perf_counter()
+    deep_models_launches = converge_deep_models(dev)
+    deep_models_full_width_launches = deep_models_full_width(hartmann_data, hartmann_space, dev)
+    print(f"phases 29-30 seconds: {time.perf_counter() - t_new:.2f}")
+    print(f"phases 1-30 seconds: {time.perf_counter() - t_start:.2f}")
 
-    # -- phase 29: kernels -----------------------------------------------------------
+    # -- phase 31: kernels -----------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "fused_predict",
         "route": "cuda",
@@ -2829,6 +3037,8 @@ def main() -> int:
         "launches_gpr_mcmc": gpr_mcmc_launches,
         "launches_gpr_mcmc_full_width": gpr_mcmc_full_width_launches,
         "launches_summaries_quickstart": summaries_launches,
+        "launches_deep_models": deep_models_launches,
+        "launches_deep_models_full_width": deep_models_full_width_launches,
         "max_abs_err": max_abs_err,
         "white_noise_abs_err": white_noise["abs_err"],
         "white_noise_plain_fp32_abs_err": white_noise["plain_fp32_abs_err"],

@@ -836,3 +836,216 @@ def test_gpr_mcmc_prediction_on_a_pool_launches_no_kernel(device):
     want_mean, want_var = mcmc._mixture_predict(stack64, caches64, pool.double())
     torch.testing.assert_close(mean.double(), want_mean, **MEAN_TOL)
     torch.testing.assert_close(var.double(), want_var, **VAR_TOL)
+
+
+# -- the deep models: the fits' CUDA graphs, fp32 against fp64, the propagation's memory -----
+
+
+def _deep_data(device, dtype, n=30, D=2, capacity=32):
+    from trieste_tpu_torch.data import Dataset
+
+    g = torch.Generator(device=device).manual_seed(0)
+    X = torch.rand(n, D, generator=g, dtype=torch.float64, device=device)
+    Y = torch.sin(5 * X[:, :1]) + X[:, 1:].sum(-1, keepdim=True)
+    return Dataset.from_arrays(X.to(dtype), Y.to(dtype), capacity=capacity)
+
+
+def _ensemble_fit(device, dtype, steps=100):
+    """Three members (hidden 25, 25) fitted ``steps`` steps in ``dtype`` from the same fp64
+    start and bootstrap."""
+    from trieste_tpu_torch.models.ensembles import deep_ensemble as de
+
+    start = de.build_deep_ensemble(_deep_data(device, torch.float64), ensemble_size=3,
+                                   generator=torch.Generator(device=device).manual_seed(1)).params
+    net = start.member_params
+    params = start.replace(
+        member_params=de.GaussianMLP([k.to(dtype) for k in net.kernels], [b.to(dtype) for b in net.biases]),
+        x_mean=start.x_mean.to(dtype), x_std=start.x_std.to(dtype), y_mean=start.y_mean.to(dtype),
+        y_std=start.y_std.to(dtype))
+    data = _deep_data(device, dtype)
+    indices = de.bootstrap_indices(torch.Generator(device=device).manual_seed(2), data.mask, 3)
+    return de.fit_deep_ensemble_from_indices(indices, params, data.query_points, data.observations,
+                                             data.mask, num_steps=steps)
+
+
+def _dgp_start(device, dtype):
+    """A two-layer deep GP (16 inducing points) built in fp64 and cast to ``dtype``."""
+    from trieste_tpu_torch.models.deepgp import deep_gp as dg
+    from trieste_tpu_torch.space import Box
+
+    start = dg.build_vanilla_deep_gp(_deep_data(device, torch.float64),
+                                     Box([0.0, 0.0], [1.0, 1.0], device=device, dtype=torch.float64),
+                                     num_inducing_points=16,
+                                     generator=torch.Generator(device=device).manual_seed(1)).params
+    cast = lambda t: t.to(dtype)  # noqa: E731
+    return start.replace(
+        layers=tuple(l.replace(kernel=l.kernel.replace(variance=cast(l.kernel.variance),
+                                                       lengthscales=cast(l.kernel.lengthscales)),
+                               inducing_points=cast(l.inducing_points), q_mu=cast(l.q_mu),
+                               q_sqrt=cast(l.q_sqrt)) for l in start.layers),
+        noise_variance=cast(start.noise_variance), mean_constant=cast(start.mean_constant))
+
+
+def _dgp_fit(device, dtype, steps=100):
+    """:func:`_dgp_start` fitted ``steps`` steps in ``dtype`` on the same fp64 noise; returns
+    the result and an fp64 noise for predictions."""
+    from trieste_tpu_torch.models.deepgp import deep_gp as dg
+
+    params, data64 = _dgp_start(device, dtype), _deep_data(device, torch.float64)
+    g = torch.Generator(device=device).manual_seed(3)
+    noise = dg.draw_noise(g, params, (steps, 8), data64.capacity, data64.query_points)
+    data = _deep_data(device, dtype)
+    result = dg.fit_dgp_from_noise(noise.to(dtype), params, data.query_points, data.observations,
+                                   data.mask)
+    return result, dg.draw_noise(g, params, (16,), 64, data64.query_points)
+
+
+DGP_GRADIENT_ATOL = 3e-5
+"""The deep GP's fp32 gradient at the start against fp64's, as a share of fp64's largest
+element (the noise variance's): measured 9.4e-6 on the H100, at the outer layer's
+``q_sqrt`` and ``q_mu`` (their terms are residuals over a small noise variance, which
+cancel). On the CPU a jitter of 1e-4 in place of fp32's 1e-5 moves it to 8.5e-5."""
+
+
+def _dgp_gradient(device, dtype):
+    """The gradient of the negative ELBO of :func:`_dgp_start` on one fp64 draw of 8 paths
+    with respect to every parameter that the fit trains."""
+    from trieste_tpu_torch.models.deepgp import deep_gp as dg
+
+    params, data = _dgp_start(device, dtype), _deep_data(device, dtype)
+    noise = dg.draw_noise(torch.Generator(device=device).manual_seed(3), params, (8,),
+                          data.capacity, data.query_points.double())
+    leaves = [t.clone().requires_grad_(True) for l in params.layers
+              for t in (l.kernel.variance, l.kernel.lengthscales, l.inducing_points, l.q_mu, l.q_sqrt)]
+    leaves += [params.noise_variance.clone().requires_grad_(True),
+               params.mean_constant.clone().requires_grad_(True)]
+    layers = tuple(l.replace(kernel=l.kernel.replace(variance=leaves[5 * i],
+                                                     lengthscales=leaves[5 * i + 1]),
+                             inducing_points=leaves[5 * i + 2], q_mu=leaves[5 * i + 3],
+                             q_sqrt=leaves[5 * i + 4]) for i, l in enumerate(params.layers))
+    loss = -dg.dgp_elbo_from_noise(dg.DGPParams(layers, leaves[-2], leaves[-1]), data.query_points,
+                                   data.observations, data.mask, noise.to(dtype))
+    return torch.autograd.grad(loss, leaves)
+
+
+def test_deep_fits_in_fp32_hold_to_fp64_on_the_card(device):
+    """The same fits from the same start and draws in fp32 and fp64. Adam's first steps move
+    a parameter by the learning rate whatever its gradient's size, so a gradient below fp32's
+    rounding can step the other way, and the two paths part within tens of steps (the
+    ensemble's final losses were -1.295 in fp32 and -1.146 in fp64 on the H100). The deep
+    GP's part at the first step: at the builder's start its inner layer's gradients are
+    rounding (about 1e-16 in fp64, 1e-6 in fp32), which Adam's first step turns into moves
+    of the learning rate in fp32 alone. Held: the objective at the start within rtol 1e-5;
+    the ensemble's predictions after 10 steps within atol 1e-4 (the targets span about 4);
+    the deep GP's gradient at the start, every parameter's within DGP_GRADIENT_ATOL of the
+    largest; after 100 steps, each fp32 fit's final loss no higher than the fp64 fit's by
+    more than a tenth of the fp64 fit's descent."""
+    from trieste_tpu_torch.models.ensembles import deep_ensemble as de
+
+    x = torch.rand(64, 2, generator=torch.Generator(device=device).manual_seed(5),
+                   dtype=torch.float64, device=device)
+    fits = {"ensemble": lambda dtype, steps: _ensemble_fit(device, dtype, steps),
+            "deep GP": lambda dtype, steps: _dgp_fit(device, dtype, steps)[0]}
+    for name, fit in fits.items():
+        start32, start64 = fit(torch.float32, 1).loss, fit(torch.float64, 1).loss
+        torch.testing.assert_close(start32.double(), start64, rtol=1e-5, atol=0, msg=name)
+        r32, r64 = fit(torch.float32, 100), fit(torch.float64, 100)
+        assert int(r32.num_nonfinite) == int(r64.num_nonfinite) == 0, name
+        descent = float(start64 - r64.loss)
+        assert descent > 0 and float(r32.loss.double() - r64.loss) <= 0.1 * descent, (
+            name, float(r32.loss), float(r64.loss), descent)
+    r32, r64 = _ensemble_fit(device, torch.float32, 10), _ensemble_fit(device, torch.float64, 10)
+    for got, want in zip(de.ensemble_predict(r32.params, x.float()), de.ensemble_predict(r64.params, x)):
+        torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-4)
+    grad32, grad64 = _dgp_gradient(device, torch.float32), _dgp_gradient(device, torch.float64)
+    scale = max(float(g.abs().max()) for g in grad64)
+    for i, (got, want) in enumerate(zip(grad32, grad64)):
+        torch.testing.assert_close(got.double(), want, rtol=0, atol=DGP_GRADIENT_ATOL * scale,
+                                   msg=f"leaf {i}")
+
+
+def test_the_graphed_adam_steps_are_the_eager_ones(device, monkeypatch):
+    """Both fits replay one CUDA graph of a step; eagerly, with the same capturable Adam,
+    they end on the same bits."""
+    from functools import partial
+
+    from trieste_tpu_torch.ops import adam
+
+    graphed = [_ensemble_fit(device, torch.float32, 30), _dgp_fit(device, torch.float32, 30)[0]]
+    monkeypatch.setattr(adam, "_step_runner", lambda leaves, optimizer, loss_fn, nonfinite:
+                        partial(adam._step, loss_fn, optimizer, nonfinite))
+    eager = [_ensemble_fit(device, torch.float32, 30), _dgp_fit(device, torch.float32, 30)[0]]
+    for g, e in zip(graphed, eager):
+        assert torch.equal(g.loss, e.loss)
+    for g, e in zip(graphed[0].params.member_params.parameters(),
+                    eager[0].params.member_params.parameters()):
+        assert torch.equal(g, e)
+    for g, e in zip(graphed[1].params.layers, eager[1].params.layers):
+        for name in ("inducing_points", "q_mu", "q_sqrt"):
+            assert torch.equal(getattr(g, name), getattr(e, name))
+        assert torch.equal(g.kernel.lengthscales, e.kernel.lengthscales)
+
+
+def test_the_graphed_dgp_fit_reads_each_block_of_noise(device, monkeypatch):
+    """Under a cap of seven steps' noise, a graphed fit of 20 steps draws four blocks and
+    ends on the bits of the fit on those blocks end to end."""
+    from trieste_tpu_torch.models.deepgp import deep_gp as dg
+
+    (start, _), data = _dgp_fit(device, torch.float32, 1), _deep_data(device, torch.float32)
+    params = start.params
+    monkeypatch.setattr(dg, "FIT_NOISE_BLOCK_BYTES", 7 * 8 * data.capacity * params.noise_width * 4)
+    drawn = []
+    draw = dg.draw_noise
+    monkeypatch.setattr(dg, "draw_noise", lambda *a: drawn.append(draw(*a)) or drawn[-1])
+    got = dg.fit_dgp(torch.Generator(device=device).manual_seed(4), params, data.query_points,
+                     data.observations, data.mask, num_steps=20)
+    assert [b.shape[0] for b in drawn] == [7, 7, 6]
+    want = dg.fit_dgp_from_noise(torch.cat(drawn), params, data.query_points,
+                                 data.observations, data.mask)
+    assert torch.equal(got.loss, want.loss)
+    for a, b in zip(got.params.layers, want.params.layers):
+        assert torch.equal(a.q_sqrt, b.q_sqrt) and torch.equal(a.inducing_points, b.inducing_points)
+
+
+def test_deep_models_fit_and_predict_on_the_card(device):
+    from trieste_tpu_torch.models.deepgp import build_vanilla_deep_gp
+    from trieste_tpu_torch.models.ensembles import build_deep_ensemble
+    from trieste_tpu_torch.space import Box
+
+    data = _deep_data(device, torch.float32)
+    space = Box([0.0, 0.0], [1.0, 1.0], device=device)
+    for model in (build_deep_ensemble(data, num_train_steps=20),
+                  build_vanilla_deep_gp(data, space, num_train_steps=20)):
+        result = model.optimize(data)
+        assert result.loss.is_cuda and bool(torch.isfinite(result.loss))
+        mean, var = model.predict(space.sample(torch.Generator(device=device).manual_seed(0), 10))
+        assert mean.is_cuda and var.is_cuda and mean.shape == (10, 1)
+        traj = model.trajectory_sampler().get_trajectory(torch.Generator(device=device).manual_seed(1), 4)
+        assert traj(torch.rand(7, 4, 2, device=device)).is_cuda
+
+
+def test_dgp_predict_at_131072_rows_stays_under_its_reckoning(device):
+    """Phase 30's prediction: 64 paths of a two-layer deep GP at full width (M = 100, width
+    6) through chunks of samples. The peak above the model is held to the noise, one
+    chunk's budget and the paths."""
+    from trieste_tpu_torch.data import Dataset
+    from trieste_tpu_torch.models.deepgp import build_vanilla_deep_gp, deep_gp as dg
+    from trieste_tpu_torch.space import Box
+
+    g = torch.Generator(device=device).manual_seed(0)
+    X = torch.rand(200, 6, generator=g, device=device)
+    data = Dataset.from_arrays(X, X.sum(-1, keepdim=True), capacity=256)
+    model = build_vanilla_deep_gp(data, Box([0.0] * 6, [1.0] * 6, device=device))
+    N, S = 131072, 64
+    pool = torch.rand(N, 6, generator=g, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        mean, var = model.predict(pool)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    reckoned = S * N * model.params.noise_width * 4 + dg.PROPAGATE_CHUNK_BYTES + 2 * S * N * 4
+    assert peak <= reckoned, (peak, reckoned)
+    assert mean.shape == var.shape == (N, 1) and bool(torch.isfinite(mean).all())
+    assert bool((var > 0).all())

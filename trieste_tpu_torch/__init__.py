@@ -8,7 +8,9 @@ sampling (discrete and continuous), the continuous, relaxed and discrete acquisi
 optimizers, the point-selection rules (``EfficientGlobalOptimization``,
 ``DiscreteThompsonSampling``, the asynchronous rules, the trust-region fleets), and the two
 loops, ``BayesianOptimizer`` and ``AskTellOptimizer`` with their summaries
-(:mod:`~trieste_tpu_torch.logging`), with the fused prediction kernel in CUDA for Hopper. Entry points work on ``cuda`` unless the caller puts its tensors (or its
+(:mod:`~trieste_tpu_torch.logging`), the deep models (:mod:`~trieste_tpu_torch.models.ensembles`,
+:mod:`~trieste_tpu_torch.models.deepgp`) and the experimental plotting, with the fused
+prediction kernel in CUDA for Hopper. Entry points work on ``cuda`` unless the caller puts its tensors (or its
 space) on the CPU.
 """
 from .ask_tell_optimization import (

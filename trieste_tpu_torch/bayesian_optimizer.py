@@ -3,7 +3,9 @@
 Per step: early-stop check → record the state → ``rule.acquire`` (a rule with state
 returns a function of it) → observer → dataset append → ``rule.filter_datasets`` → model
 update and training → summaries (with a writer set: each model's ``log``, the
-observations and query points, the wall clocks, then one flush of what the step queued).
+observations and query points, the wall clocks, then one flush of what the step queued;
+pairplots of the observations and the query points where the summary filter admits
+``_pairplot`` and matplotlib is installed).
 Any exception ends the run as an ``Err`` result that carries the history so far. Records
 and results are saved with ``torch.save`` and loaded with ``torch.load``; load only files
 that this package wrote.
@@ -32,6 +34,8 @@ from .logging import (
     deferred_scalar,
     flush_deferred_summaries,
     get_tensorboard_writer,
+    include_summary,
+    pyplot,
     scalar,
     set_step_number,
     step_number,
@@ -241,6 +245,8 @@ class BayesianOptimizer:
             acquisition_rule = EfficientGlobalOptimization()
         if generator is None:
             generator = new_generator(next(iter(datasets.values())).device)
+        # the rows up to these counts are the "initial" group of the pairplot summaries
+        initial_counts = {tag: ds.num_points for tag, ds in datasets.items()}
 
         def filtered(state):
             """The rule's view of the datasets, which may depend on (and move) its state."""
@@ -322,8 +328,9 @@ class BayesianOptimizer:
                             fit(filtered_datasets)
 
                 if get_tensorboard_writer() is not None:
-                    write_summary_observations(datasets, models, tagged_output, fit_timer)
-                    write_summary_query_points(datasets)
+                    write_summary_observations(datasets, models, tagged_output, fit_timer,
+                                               initial_counts)
+                    write_summary_query_points(datasets, initial_counts)
                     scalar("wallclock/step", step_timer.time)
                     scalar("wallclock/query_point_generation", acquire_timer.time)
                     scalar("wallclock/observation", observation_timer.time)
@@ -390,10 +397,12 @@ def write_summary_observations(
     models: Mapping[Tag, ProbabilisticModel],
     tagged_output: Mapping[Tag, Dataset],
     model_fitting_timer: Timer,
+    initial_counts: Optional[Mapping[Tag, int]] = None,
 ) -> None:
     """Queue each global tag's model summaries (its ``log``) and, per output dimension, its
-    new observations with the best of them and the best overall; write the fit's wall
-    clock."""
+    new observations with the best of them and the best overall; with two outputs or more,
+    a pairplot of the observations (:func:`_pairplot_summary`, non-dominated rows marked);
+    write the fit's wall clock."""
     for tag, dataset in ignoring_local_tags(datasets).items():
         obs = dataset.trimmed_observations
         if obs.shape[0] == 0:
@@ -413,15 +422,50 @@ def write_summary_observations(
                 deferred_scalar(f"{tag}.observation{suffix}/best_new_observation",
                                 torch.min(new_obs[..., i]))
             deferred_scalar(f"{tag}.observation{suffix}/best_overall", torch.min(obs[..., i]))
+        name = f"{tag}.observations/_pairplot"
+        if L >= 2 and include_summary(name):
+            _pairplot_summary(name, obs, (initial_counts or {}).get(tag, 0), new_obs.shape[0],
+                              mark_non_dominated=True)
     scalar("wallclock/model_fitting", model_fitting_timer.time)
 
 
-def write_summary_query_points(datasets: Mapping[Tag, Dataset]) -> None:
-    """Queue a histogram of each global tag's query points per input dimension."""
+def write_summary_query_points(
+    datasets: Mapping[Tag, Dataset], initial_counts: Optional[Mapping[Tag, int]] = None
+) -> None:
+    """Queue a histogram of each global tag's query points per input dimension and, with
+    two dimensions or more, write a pairplot of them (:func:`_pairplot_summary`)."""
     for tag, dataset in ignoring_local_tags(datasets).items():
         qp = dataset.trimmed_query_points
-        for i in range(qp.shape[-1] if qp.shape[0] else 0):
+        if qp.shape[0] == 0:
+            continue
+        for i in range(qp.shape[-1]):
             deferred_histogram(f"{tag}.query_points/[{i}]", qp[:, i])
+        name = f"{tag}.query_points/_pairplot"
+        if qp.shape[-1] >= 2 and include_summary(name):
+            _pairplot_summary(name, qp, (initial_counts or {}).get(tag, 0), 0)
+
+
+def _pairplot_summary(
+    name: str, data: torch.Tensor, num_initial: int, num_new: int,
+    mark_non_dominated: bool = False,
+) -> None:
+    """Write a pairplot of ``data [n, K]`` (copied to the host), its rows grouped as the
+    first ``num_initial``, the last ``num_new`` and the old ones between, the non-dominated
+    rows marked where asked. Nothing is written without matplotlib; any other failure
+    raises."""
+    try:
+        import matplotlib  # noqa: F401 - the figure needs it
+    except ImportError:
+        return
+    from .acquisition.multi_objective.dominance import non_dominated_mask
+    from .experimental.plotting.pairplot import observation_groups, pairplot
+
+    n = data.shape[0]
+    num_initial = min(num_initial, n)
+    num_new = min(num_new, n - num_initial)
+    front = _host(non_dominated_mask(data)) if mark_non_dominated else None
+    groups = observation_groups(num_initial, n - num_initial - num_new, num_new, front)
+    pyplot(name, pairplot(_host(data), groups))
 
 
 def _host(x) -> np.ndarray:

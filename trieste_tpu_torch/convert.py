@@ -24,6 +24,8 @@ from .acquisition.trust_region import (
     UpdatableTrustRegionProduct,
 )
 from .data import Dataset
+from .models.deepgp.deep_gp import DGPLayerParams, DGPParams
+from .models.ensembles.deep_ensemble import DeepEnsembleParams, GaussianMLP
 from .models.gp.gpr import GaussianProcessRegression
 from .models.gp.mcmc import GaussianProcessRegressionMCMC
 from .models.gp.likelihoods import BernoulliLikelihood, GaussianLikelihood, PoissonLikelihood
@@ -159,6 +161,60 @@ def vgp_params_from_numpy(
         likelihood=likelihoods[likelihood](),
     )
 
+
+
+def deep_ensemble_from_numpy(
+    member_params: Mapping[str, Mapping[str, Any]],
+    x_mean,
+    x_std,
+    y_mean,
+    y_std,
+    *,
+    device: Device = "cuda",
+    dtype: Optional[torch.dtype] = None,
+) -> DeepEnsembleParams:
+    """:class:`DeepEnsembleParams` from numpy values: ``member_params`` is the JAX
+    package's flax tree, ``{"Dense_i": {"kernel": [E, d_in, d_out], "bias": [E, d_out]}}``
+    with the hidden layers first and the two heads last, in flax's layout, which the port
+    keeps; the normalization as it is. Everything takes ``dtype``, by default the
+    normalization's (flax keeps float32 weights under x64, computing in float64)."""
+    dtype = dtype or _tensor(x_mean, device, None).dtype
+    names = sorted(member_params, key=lambda name: int(name.rsplit("_", 1)[1]))
+    kernels = [_tensor(member_params[name]["kernel"], device, dtype) for name in names]
+    return DeepEnsembleParams(
+        member_params=GaussianMLP(
+            kernels, [_tensor(member_params[name]["bias"], device, dtype) for name in names]
+        ),
+        x_mean=_tensor(x_mean, device, dtype), x_std=_tensor(x_std, device, dtype),
+        y_mean=_tensor(y_mean, device, dtype), y_std=_tensor(y_std, device, dtype),
+    )
+
+
+def dgp_params_from_numpy(
+    layers: Sequence[Mapping[str, Any]],
+    noise_variance,
+    mean_constant,
+    *,
+    device: Device = "cuda",
+    dtype: Optional[torch.dtype] = None,
+) -> DGPParams:
+    """:class:`DGPParams` from numpy values: each layer a mapping with the kernel's
+    ``kind``, ``variance`` and ``lengthscales``, and ``inducing_points [M, d_in]``,
+    ``q_mu [M, d_out]`` and ``q_sqrt [d_out, M, M]``."""
+    out = []
+    for layer in layers:
+        variance = _tensor(layer["variance"], device, dtype)
+        like = variance.dtype
+        out.append(DGPLayerParams(
+            kernel=stationary(layer["kind"], variance, _tensor(layer["lengthscales"], device, like),
+                              dtype=like, device=device),
+            inducing_points=_tensor(layer["inducing_points"], device, like),
+            q_mu=_tensor(layer["q_mu"], device, like),
+            q_sqrt=_tensor(layer["q_sqrt"], device, like),
+        ))
+    like = out[0].q_mu.dtype
+    return DGPParams(tuple(out), _tensor(noise_variance, device, like),
+                     _tensor(mean_constant, device, like))
 
 def _fidelity_levels(
     levels: Sequence[Tuple[Mapping[str, Any], Mapping[str, Any]]], device: Device,

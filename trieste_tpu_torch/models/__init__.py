@@ -26,3 +26,5 @@ from .interfaces import (
     TrajectorySampler,
 )
 from .stacks import StackReparametrizationSampler
+
+from . import ensembles, gp  # noqa: E402 - after the protocols they import
