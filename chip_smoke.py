@@ -193,11 +193,25 @@ Phases, each printing its own lines and its seconds:
    points at 131,072 seeds and 60 runs, each with its peak memory beside the bytes
    reckoned; no kernel launch; then an import of the experimental plotting, which finds
    neither matplotlib nor plotly on a machine without them;
-31. one JSON line describing each kernel. Its ``max_abs_err`` covers every case held to
+31. multi-device (``trieste_tpu_torch.parallel``): (a) phase 5's full-width EI acquire
+   (its fitted model and data, 131,072 seeds, 60 runs) under a mesh of one rank, first with
+   no process group and then in a one-rank NCCL group: the same point bit for bit, the same
+   kernel launches and no collective call; (b) two child processes on the one card, joined
+   by a gloo group (NCCL takes one rank per GPU), which load the kernel the parent built:
+   ``fit_gpr`` with 10 restarts, five a rank, against the parent's unsharded fit from the
+   same draws; one EI acquire at 131,072 seeds, the kernel on each rank's 65,536 rows held
+   against its fp64 plain version and the point against the parent's unsharded one; and a
+   3000-row pool (1500 rows a rank), which must launch the kernel once, as unsharded. Each
+   rank prints its seconds, launches and the bytes it received; two ranks time-share one
+   card, so those seconds say nothing of scaling;
+32. one JSON line describing each kernel. Its ``max_abs_err`` covers every case held to
    the contract, including the kernel on the fitted models that phases 4 to 7, 12, 14 to
-   17, 19 and 25 leave behind; the white-noise case has keys of its own.
+   17, 19, 25 and 31 leave behind; the white-noise case has keys of its own.
 
-Phases 6 to 30 each print their seconds and phases 11 to 30 their kernel launches; phases 6
+Run with ``--multi-device-rank RANK WORLD COORDINATOR DIRECTORY``, the script is one of
+phase 31's child processes.
+
+Phases 6 to 31 each print their seconds and phases 11 to 31 their kernel launches; phases 6
 to 21, 23, 25 to 27 and 29 to 30 the bytes reckoned for their largest tensors and
 ``torch.cuda.max_memory_allocated()``.
 
@@ -316,6 +330,25 @@ OBJECTIVE_FP32_RTOL = 1e-5
 DEEP_GP_STEPS = 25
 DEEP_ENSEMBLE_STEPS = 60
 DEEP_MODEL_RTOL = 0.05
+# Phase 31: two ranks share the card; the fit's restarts, the seed and the gate's pool
+MULTI_DEVICE_RANKS = 2
+MULTI_DEVICE_FIT_STARTS = 10
+MULTI_DEVICE_SEED = 31
+MULTI_DEVICE_GATE_POOL = 3000
+MULTI_DEVICE_TIMEOUT = 300
+# The sharded fit and acquire against the unsharded ones from the same draws. In fp32 the
+# card's batched products round by batch size (cuBLAS picks its kernels by shape), so the
+# L-BFGS runs of 5 restarts (30 acquisition runs) a rank stop elsewhere on a flat optimum
+# than those of 10 (60) in one batch: 2.0e-6 of the loss, 1.1e-3 in a log-parameter and
+# 2.3e-4 in the point on the H100. The fit is held bit for bit to unsharded fits of the
+# ranks' blocks and by its loss to the one-batch fit; the point by its distance, as the
+# JAX test holds a rounded pool (tests/unit/test_parallel.py:151-153), and by its EI
+MULTI_DEVICE_FIT_LOSS_RTOL = 1e-5
+MULTI_DEVICE_POINT_ATOL = 1e-3
+MULTI_DEVICE_EI_RTOL = 1e-4
+COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_reduce", "broadcast", "reduce",
+               "gather", "scatter", "reduce_scatter", "reduce_scatter_tensor", "all_to_all",
+               "all_to_all_single", "barrier", "all_gather_object", "broadcast_object_list")
 
 
 def fail(msg: str) -> None:
@@ -2394,6 +2427,262 @@ def deep_models_full_width(data, space, dev, N=131072) -> int:
     return fp.launches
 
 
+def counting_collectives():
+    """Wrap ``torch.distributed``'s collectives to count their calls: ``(count, restore)``."""
+    import torch.distributed as dist
+
+    count = {"n": 0}
+    originals = {name: getattr(dist, name) for name in COLLECTIVES if hasattr(dist, name)}
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            count["n"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in originals.items():
+        setattr(dist, name, counted(fn))
+
+    def restore():
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+
+    return count, restore
+
+
+def ei_acquire(model, data, space, dev, num_seeds):
+    """One EI acquire at ``num_seeds`` seeds and the default 60 runs, from a generator
+    seeded ``MULTI_DEVICE_SEED``: ``(point, kernel launches, seconds)``."""
+    from trieste_tpu_torch.acquisition import (
+        EfficientGlobalOptimization, generate_continuous_optimizer,
+    )
+    from trieste_tpu_torch.ops import fused_predict as fp
+
+    rule = EfficientGlobalOptimization(
+        optimizer=generate_continuous_optimizer(num_initial_samples=num_seeds)
+    )
+    generator = torch.Generator(device=dev).manual_seed(MULTI_DEVICE_SEED)
+    torch.cuda.synchronize()
+    fp.launches = 0
+    t0 = time.perf_counter()
+    point = rule.acquire_single(space, model, data, generator=generator)
+    torch.cuda.synchronize()
+    return point, fp.launches, time.perf_counter() - t0
+
+
+def multi_device_fit(data, space, dev, pool_sharding=None, blocks=1):
+    """Phase 31(b)'s fit: ``fit_gpr``'s restarts from ``build_gpr``'s start on ``data``,
+    ``MULTI_DEVICE_FIT_STARTS`` of them drawn from a generator seeded
+    ``MULTI_DEVICE_SEED``, sharded by ``pool_sharding``, or unsharded in one call or in
+    ``blocks`` calls of the ranks' blocks, the best kept (ties to the first):
+    ``(loss, packed parameters, seconds)``."""
+    from trieste_tpu_torch.models.gp import build_gpr
+    from trieste_tpu_torch.models.gp.training import (
+        fit_gpr_from_starts, pack_params, randomize_starts,
+    )
+
+    template = build_gpr(data, space)
+    generator = torch.Generator(device=dev).manual_seed(MULTI_DEVICE_SEED)
+    starts = randomize_starts(generator, template.params, MULTI_DEVICE_FIT_STARTS,
+                              template._train_noise, priors=template._priors)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = [fit_gpr_from_starts(
+        block, template.params, data.query_points, data.observations, data.mask,
+        train_noise=template._train_noise, max_iters=template._max_optimize_iters,
+        priors=template._priors, pool_sharding=pool_sharding,
+    ) for block in starts.chunk(blocks)]
+    torch.cuda.synchronize()
+    best = min(results, key=lambda r: float(r.loss))
+    return float(best.loss), pack_params(best.params).tolist(), time.perf_counter() - t0
+
+
+def multi_device_rank(rank: int, world: int, coordinator: str, workdir: str) -> int:
+    """One of phase 31(b)'s ranks: join the gloo group on ``cuda:0``, fit, acquire and
+    score the gate's pool under the mesh of every rank; write what it saw to
+    ``workdir/rank{rank}.json``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch.distributed as dist
+
+    from trieste_tpu_torch.models.gp import GaussianProcessRegression
+    from trieste_tpu_torch.objectives import Hartmann6
+    from trieste_tpu_torch.ops import fused_predict as fp
+    from trieste_tpu_torch.parallel import (
+        collectives, create_multi_host_mesh, global_mesh, initialize_multi_host, pool_sharding,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    # NCCL refuses two ranks on one GPU, so the ranks that share the card join by gloo,
+    # which takes host copies of the small operands that cross ranks
+    initialize_multi_host(coordinator, world, rank, backend="gloo", device=dev)
+    try:
+        mesh = create_multi_host_mesh()
+        saved = torch.load(Path(workdir) / "phase5.pt", map_location=dev, weights_only=False)
+        data, space = saved["data"], Hartmann6.search_space
+        loss, packed, fit_s = multi_device_fit(data, space, dev, pool_sharding(mesh))
+
+        calls = []
+        launch = fp.launch
+
+        def recorded(*args):
+            out = launch(*args)
+            calls.append((args, out))
+            return out
+
+        fp.launch = recorded
+        model = GaussianProcessRegression(saved["params"], data)
+        with global_mesh(mesh):
+            point, launches, acquire_s = ei_acquire(model, data, space, dev, 131072)
+            gate_point, gate_launches, _ = ei_acquire(model, data, space, dev,
+                                                      MULTI_DEVICE_GATE_POOL)
+        fp.launch = launch
+        errors, rows = [], []
+        for args, out in calls:  # the kernel on this rank's rows against its plain version
+            plain = fp.fused_predict_reference(args[0], *(t.double() for t in args[1:]))
+            em, ev, _, _, ok = compare(out, plain)
+            errors.append((em, ev, ok))
+            rows.append(args[1].shape[0])
+        result = {
+            "rank": rank, "mesh_size": mesh.size, "fit_loss": loss, "fit_params": packed,
+            "fit_s": fit_s, "point": point.tolist(), "launches": launches,
+            "acquire_s": acquire_s, "gate_point": gate_point.tolist(),
+            "gate_launches": gate_launches, "kernel_rows": rows,
+            "kernel_abs_err": max([max(em, ev) for em, ev, _ in errors], default=0.0),
+            "kernel_ok": all(ok for _, _, ok in errors),
+            "collectives": collectives.collective_calls,
+            "bytes_received": collectives.bytes_received, "builds": fp.builds,
+            "jax_imported": "jax" in sys.modules,
+        }
+    finally:
+        dist.destroy_process_group()
+    (Path(workdir) / f"rank{rank}.json").write_text(json.dumps(result))
+    return 0
+
+
+def one_rank_mesh(label, model, data, space, dev, base):
+    """Phase 31(a): the acquire under a mesh of this process alone (in the process group,
+    if one is initialised) equals ``base`` bit for bit, with its launches and no
+    collective call; returns the launches."""
+    from trieste_tpu_torch.parallel import create_mesh, global_mesh
+
+    mesh = create_mesh()
+    count, restore = counting_collectives()
+    try:
+        with global_mesh(mesh):
+            point, launches, seconds = ei_acquire(model, data, space, dev, 131072)
+    finally:
+        restore()
+    print(f"phase 31 {label}: mesh of {mesh.size} rank on "
+          f"cuda:{torch.cuda.current_device()}, point "
+          f"{point.tolist()}, kernel launches {launches}, collective calls {count['n']}, "
+          f"{seconds:.3f} s")
+    if mesh.size != 1 or not torch.equal(point, base[0]):
+        fail(f"phase 31 {label}: the point differs from the unsharded acquire's")
+    if launches != base[1] or count["n"] != 0:
+        fail(f"phase 31 {label}: {launches} launches and {count['n']} collectives, "
+             f"expected {base[1]} and 0")
+    return launches
+
+
+def multi_device(model, data, space, dev, max_abs_err):
+    """Phase 31: a one-rank mesh takes the unsharded path; two ranks on the one card agree
+    with the unsharded fit and acquire. Returns ``(max_abs_err, per-rank launches)``."""
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+
+    from trieste_tpu_torch.acquisition import ExpectedImprovement
+    from trieste_tpu_torch.models.gp import GaussianProcessRegression
+
+    t_phase = time.perf_counter()
+    model = GaussianProcessRegression(model.params, data)
+    base = ei_acquire(model, data, space, dev, 131072)
+    print(f"phase 31 unsharded EI acquire on phase 5's model (capacity {data.capacity}, "
+          f"{len(data)} points, 131072 seeds, 60 runs): point {base[0].tolist()}, kernel "
+          f"launches {base[1]}, {base[2]:.3f} s")
+    one_rank_mesh("(a) no process group", model, data, space, dev, base)
+    with tempfile.TemporaryDirectory() as workdir:
+        dist.init_process_group("nccl", init_method=f"file://{workdir}/nccl", world_size=1,
+                                rank=0)
+        try:
+            one_rank_mesh("(a) one-rank NCCL group", model, data, space, dev, base)
+        finally:
+            dist.destroy_process_group()
+
+        # (b) the parent's unsharded references, then two ranks on the card
+        fit_loss, fit_params, fit_s = multi_device_fit(data, space, dev)
+        block_loss, block_params, _ = multi_device_fit(data, space, dev,
+                                                       blocks=MULTI_DEVICE_RANKS)
+        gate = ei_acquire(model, data, space, dev, MULTI_DEVICE_GATE_POOL)
+        print(f"phase 31 (b) unsharded: fit of {MULTI_DEVICE_FIT_STARTS} restarts loss "
+              f"{fit_loss!r} in {fit_s:.3f} s, of the ranks' blocks in turn {block_loss!r}; "
+              f"the {MULTI_DEVICE_GATE_POOL}-row pool's acquire launches {gate[1]}")
+        torch.save({"data": data, "params": model.params}, Path(workdir) / "phase5.pt")
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            coordinator = f"localhost:{sock.getsockname()[1]}"
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--multi-device-rank", str(r),
+             str(MULTI_DEVICE_RANKS), coordinator, workdir],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ) for r in range(MULTI_DEVICE_RANKS)]
+        try:
+            logs = [p.communicate(timeout=MULTI_DEVICE_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                print(log[-6000:])
+                fail(f"phase 31 (b): rank {r} exited with {p.returncode}")
+        ranks = [json.loads((Path(workdir) / f"rank{r}.json").read_text())
+                 for r in range(MULTI_DEVICE_RANKS)]
+
+    half = 131072 // MULTI_DEVICE_RANKS
+    ei = ExpectedImprovement().prepare_acquisition_function(model, data)
+    base_ei = float(ei(base[0][:, None, :]))
+    for r in ranks:
+        point = torch.tensor(r["point"], device=dev)
+        distance = (point - base[0]).abs().max().item()
+        point_ei = float(ei(point[:, None, :]))
+        print(f"phase 31 (b) rank {r['rank']} of {r['mesh_size']} (gloo, cuda:0): fit "
+              f"{r['fit_s']:.3f} s, loss {r['fit_loss']!r} (unsharded {fit_loss!r}), params "
+              f"max abs diff {max(abs(a - b) for a, b in zip(r['fit_params'], fit_params)):.3e}; "
+              f"acquire {r['acquire_s']:.3f} s, point max abs diff {distance:.3e}, EI there "
+              f"{point_ei!r} (unsharded point {base_ei!r}), kernel "
+              f"launches {r['launches']} over rows {r['kernel_rows']}, kernel vs plain (fp64) "
+              f"max abs err {r['kernel_abs_err']:.3e}; the {MULTI_DEVICE_GATE_POOL}-row pool "
+              f"launches {r['gate_launches']}; {r['collectives']} collectives, "
+              f"{r['bytes_received']} bytes received; builds {r['builds']}")
+        if r["builds"] != 0 or r["jax_imported"] or r["mesh_size"] != MULTI_DEVICE_RANKS:
+            fail(f"phase 31 (b) rank {r['rank']}: built the kernel, imported JAX or saw a "
+                 f"mesh of {r['mesh_size']}")
+        if (r["fit_loss"], r["fit_params"]) != (block_loss, block_params):
+            fail(f"phase 31 (b) rank {r['rank']}: the sharded fit differs from the unsharded "
+                 f"fits of the ranks' blocks")
+        if abs(r["fit_loss"] - fit_loss) > MULTI_DEVICE_FIT_LOSS_RTOL * abs(fit_loss):
+            fail(f"phase 31 (b) rank {r['rank']}: the sharded fit's loss is off the unsharded")
+        if r["launches"] != base[1] or r["kernel_rows"][:1] != [half] or not r["kernel_ok"]:
+            fail(f"phase 31 (b) rank {r['rank']}: expected {base[1]} launch over {half} rows "
+                 f"within the contract")
+        if distance > MULTI_DEVICE_POINT_ATOL or point_ei < base_ei * (1 - MULTI_DEVICE_EI_RTOL):
+            fail(f"phase 31 (b) rank {r['rank']}: the sharded point is off the unsharded one")
+        if r["gate_launches"] != gate[1] or gate[1] != 1:
+            fail(f"phase 31 (b) rank {r['rank']}: the {MULTI_DEVICE_GATE_POOL}-row pool "
+                 f"launched {r['gate_launches']} times, unsharded {gate[1]}, expected 1")
+        if r["point"] != ranks[0]["point"] or r["fit_params"] != ranks[0]["fit_params"]:
+            fail("phase 31 (b): the ranks disagree")
+        max_abs_err = max(max_abs_err, r["kernel_abs_err"])
+    print("phase 31 (b): two ranks time-share one card, so these seconds say nothing of "
+          "scaling over devices")
+    print(f"phase 31 seconds: {time.perf_counter() - t_phase:.2f}")
+    return max_abs_err, [r["launches"] + r["gate_launches"] for r in ranks]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3008,8 +3297,12 @@ def main() -> int:
     deep_models_full_width_launches = deep_models_full_width(hartmann_data, hartmann_space, dev)
     print(f"phases 29-30 seconds: {time.perf_counter() - t_new:.2f}")
     print(f"phases 1-30 seconds: {time.perf_counter() - t_start:.2f}")
+    max_abs_err, multi_device_launches = multi_device(
+        hartmann_model, hartmann_final, hartmann_space, dev, max_abs_err
+    )
+    print(f"phases 1-31 seconds: {time.perf_counter() - t_start:.2f}")
 
-    # -- phase 31: kernels -----------------------------------------------------------
+    # -- phase 32: kernels -----------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "fused_predict",
         "route": "cuda",
@@ -3039,6 +3332,7 @@ def main() -> int:
         "launches_summaries_quickstart": summaries_launches,
         "launches_deep_models": deep_models_launches,
         "launches_deep_models_full_width": deep_models_full_width_launches,
+        "launches_multi_device": multi_device_launches,
         "max_abs_err": max_abs_err,
         "white_noise_abs_err": white_noise["abs_err"],
         "white_noise_plain_fp32_abs_err": white_noise["plain_fp32_abs_err"],
@@ -3069,4 +3363,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multi-device-rank"]:
+        rank, world, coordinator, workdir = sys.argv[2:6]
+        sys.exit(multi_device_rank(int(rank), int(world), coordinator, workdir))
     sys.exit(main())

@@ -479,9 +479,11 @@ def jax_restarts(monkeypatch):
             priors=jmodel._priors,
         )))
 
-    def fit_from_queue(generator, params, X, Y, mask, *, num_starts, train_noise, max_iters, priors):
+    def fit_from_queue(generator, params, X, Y, mask, *, num_starts, train_noise, max_iters, priors,
+                pool_sharding):
         return ttrain.fit_gpr_from_starts(_t(queue.pop(0)), params, X, Y, mask,
-                                          train_noise=train_noise, max_iters=max_iters, priors=priors)
+                                          train_noise=train_noise, max_iters=max_iters, priors=priors,
+                                          pool_sharding=pool_sharding)
 
     monkeypatch.setattr(tgpr, "fit_gpr", fit_from_queue)
     return next_fit

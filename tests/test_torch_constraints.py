@@ -170,10 +170,12 @@ def jax_draws(monkeypatch):
     def replay_halton(self, generator, n):
         return _t(haltons.pop(0))
 
-    def replay_fit(generator, params, X, Y, mask, *, num_starts, train_noise, max_iters, priors):
+    def replay_fit(generator, params, X, Y, mask, *, num_starts, train_noise, max_iters, priors,
+                pool_sharding):
         return ttrain.fit_gpr_from_starts(_t(restarts.pop(0)), params, X, Y, mask,
                                           train_noise=train_noise, max_iters=max_iters,
-                                          priors=priors)
+                                          priors=priors,
+                                          pool_sharding=pool_sharding)
 
     monkeypatch.setattr(jsp.Box, "sample", record_pool)
     monkeypatch.setattr(jsp.Box, "sample_halton", record_halton)

@@ -1049,3 +1049,44 @@ def test_dgp_predict_at_131072_rows_stays_under_its_reckoning(device):
     assert peak <= reckoned, (peak, reckoned)
     assert mean.shape == var.shape == (N, 1) and bool(torch.isfinite(mean).all())
     assert bool((var > 0).all())
+
+
+def test_a_one_rank_mesh_takes_the_unsharded_path_on_the_card(device, monkeypatch):
+    """An EI acquire over a 5000-row pool under a mesh of one rank: the same point bit for
+    bit, the same kernel launches, and no collective call."""
+    import torch.distributed as dist
+
+    from trieste_tpu_torch.acquisition import EfficientGlobalOptimization
+    from trieste_tpu_torch.acquisition.optimizer import generate_continuous_optimizer
+    from trieste_tpu_torch.data import Dataset
+    from trieste_tpu_torch.models.gp import build_gpr
+    from trieste_tpu_torch.objectives import ScaledBranin
+    from trieste_tpu_torch.parallel import create_mesh, global_mesh
+
+    calls = []
+    for name in ("all_gather", "all_reduce", "broadcast", "all_gather_into_tensor", "barrier"):
+        if hasattr(dist, name):
+            monkeypatch.setattr(dist, name, lambda *a, _n=name, **k: calls.append(_n))
+    space = ScaledBranin.search_space
+    g = torch.Generator(device=device).manual_seed(0)
+    X = space.sample(g, 20)
+    data = Dataset.from_arrays(X, ScaledBranin.objective(X))
+    model = build_gpr(data, space)
+    model.optimize(data)
+    rule = EfficientGlobalOptimization(optimizer=generate_continuous_optimizer(5000))
+
+    def acquire():
+        fp.launches = 0
+        point = rule.acquire_single(space, model, data,
+                                    generator=torch.Generator(device=device).manual_seed(1))
+        torch.cuda.synchronize()
+        return point, fp.launches
+
+    base, base_launches = acquire()
+    mesh = create_mesh()
+    with global_mesh(mesh):
+        point, launches = acquire()
+    assert mesh.size == 1 and mesh.group is None
+    assert base_launches == launches == 1
+    assert torch.equal(point, base)
+    assert calls == []

@@ -223,9 +223,11 @@ def jax_fits(monkeypatch):
                                                         model._train_noise)))
         return ar1_optimize(self, dataset)
 
-    def replay_gpr(generator, params, X, Y, mask, *, num_starts, train_noise, max_iters, priors):
+    def replay_gpr(generator, params, X, Y, mask, *, num_starts, train_noise, max_iters, priors,
+                pool_sharding):
         return ttrain.fit_gpr_from_starts(_t(gpr_starts.pop(0)), params, X, Y, mask,
-                                          train_noise=train_noise, max_iters=max_iters, priors=priors)
+                                          train_noise=train_noise, max_iters=max_iters, priors=priors,
+                                          pool_sharding=pool_sharding)
 
     def replay_residual(generator, params, num_starts, train_noise):
         assert num_starts == 6

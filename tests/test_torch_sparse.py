@@ -410,14 +410,17 @@ def sparse_draws(monkeypatch, jax_pools):
         return svgp_optimize(self, dataset)
 
     def replay_sgpr(generator, params, X, Y, mask, *, num_starts, train_noise, train_inducing,
-                    max_iters, priors):
+                    max_iters, priors, pool_sharding):
         return ts.fit_sgpr_from_starts(_t(sgpr_starts.pop(0)), params, X, Y, mask,
                                        train_noise=train_noise, train_inducing=train_inducing,
-                                       max_iters=max_iters, priors=priors)
+                                       max_iters=max_iters, priors=priors,
+                                       pool_sharding=pool_sharding)
 
-    def replay_svgp(generator, params, X, Y, mask, *, train_noise, max_iters, priors):
+    def replay_svgp(generator, params, X, Y, mask, *, num_starts, train_noise, max_iters, priors,
+                    pool_sharding):
         return ts.fit_svgp_from_starts(_t(svgp_starts.pop(0)), params, X, Y, mask,
-                                       train_noise=train_noise, max_iters=max_iters, priors=priors)
+                                       train_noise=train_noise, max_iters=max_iters, priors=priors,
+                                       pool_sharding=pool_sharding)
 
     def initial(dataset, space, num, seed):
         qp = dataset.trimmed_query_points

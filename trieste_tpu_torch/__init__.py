@@ -11,8 +11,10 @@ loops, ``BayesianOptimizer`` and ``AskTellOptimizer`` with their summaries
 (:mod:`~trieste_tpu_torch.logging`), the deep models (:mod:`~trieste_tpu_torch.models.ensembles`,
 :mod:`~trieste_tpu_torch.models.deepgp`) and the experimental plotting, with the fused
 prediction kernel in CUDA for Hopper. Entry points work on ``cuda`` unless the caller puts its tensors (or its
-space) on the CPU.
+space) on the CPU. :mod:`~trieste_tpu_torch.parallel` shards the pool-shaped stages over
+the ranks of a ``torch.distributed`` group.
 """
+from . import acquisition, logging, models, objectives, profiling, space, utils
 from .ask_tell_optimization import (
     AskTellOptimizer,
     AskTellOptimizerABC,
@@ -37,3 +39,35 @@ from .space import (
     TaggedMultiSearchSpace,
     TaggedProductSearchSpace,
 )
+from .version import VERSION
+
+__version__ = VERSION
+
+# the JAX package's names, and the search spaces, which the port also exports here
+__all__ = [
+    "AskTellOptimizer",
+    "AskTellOptimizerABC",
+    "AskTellOptimizerNoTraining",
+    "AskTellOptimizerState",
+    "BayesianOptimizer",
+    "Box",
+    "CategoricalSearchSpace",
+    "Dataset",
+    "DiscreteSearchSpace",
+    "FrozenRecord",
+    "GeneralDiscreteSearchSpace",
+    "OBJECTIVE",
+    "Observer",
+    "OptimizationResult",
+    "Record",
+    "SearchSpace",
+    "TaggedMultiSearchSpace",
+    "TaggedProductSearchSpace",
+    "acquisition",
+    "logging",
+    "models",
+    "objectives",
+    "space",
+    "stop_at_minimum",
+    "utils",
+]

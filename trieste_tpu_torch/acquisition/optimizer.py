@@ -14,6 +14,10 @@ constraints the seeds are feasible samples, an infeasible seed or run never wins
 runs minimize the acquisition with an exact-penalty term ``weight · Σ relu(−r)²`` on the
 constraints' residuals ``r``. A discrete space is searched exhaustively.
 
+Under a global mesh (:mod:`trieste_tpu_torch.parallel`) the pool and the runs are rounded
+up to multiples of its size; every rank draws the whole pool, scores its block of the
+seeds and runs its block of the starts, and the best-of selections are gathered.
+
 >>> from trieste_tpu_torch.space import DiscreteSearchSpace
 >>> space = DiscreteSearchSpace(torch.tensor([[0.0], [1.0], [2.0]]))
 >>> acq = lambda x: -torch.sum((x[..., 0, :] - 1.9) ** 2, dim=-1, keepdim=True)
@@ -22,12 +26,15 @@ constraints' residuals ``r``. A discrete space is searched exhaustively.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Tuple, Union
 
 import torch
 
 from ..logging import deferred_scalar, scalar
+from ..ops.fused_predict import sharded_pool
 from ..ops.lbfgs import minimize_lbfgs
+from ..parallel import Mesh, local_slice, round_to_mesh, sharded_best, sharding_mesh
 from ..space import (
     GeneralDiscreteSearchSpace,
     SearchSpace,
@@ -120,6 +127,7 @@ def _optimize_continuous_core(
     max_iters: int,
     discrete_mask: Optional[torch.Tensor] = None,  # [D] bool
     residual_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Seed scoring → top-k starts → lockstep multi-start L-BFGS → winner per slice over
     runs and seeds. ``acq`` maps ``[..., V, D] -> [..., V]``. The dimensions under
@@ -127,17 +135,28 @@ def _optimize_continuous_core(
     ``residual_fn`` (``[..., D] -> [..., n_res]``, feasible iff every residual is >= 0)
     makes the search constraint-aware: infeasible seeds and runs score ``-inf`` and the
     runs carry the exact penalty. Returns ``(points [V, D], values [V], improvement over
-    the best seed [V])``."""
+    the best seed [V])``.
+
+    With a ``mesh`` of more than one rank (N and R multiples of its size) each rank
+    scores its block of the seeds and runs its block of the starts; the global top-R
+    starts, the best run and the best seed come from :func:`sharded_best`, the same on
+    every rank."""
     N, V, D = seeds.shape
-    with torch.no_grad():
-        seed_vals = acq(seeds)  # [N, V]
+    pool = seeds if mesh is None else seeds[local_slice(N, mesh)]
+    gate = contextlib.nullcontext() if mesh is None else sharded_pool(pool, mesh.size)
+    with torch.no_grad(), gate:
+        seed_vals = acq(pool)  # [N (or the rank's block), V]
         seed_vals = torch.where(torch.isfinite(seed_vals), seed_vals, -torch.inf)
         if residual_fn is not None:
-            seed_vals = torch.where(_feasible(residual_fn, seeds), seed_vals, -torch.inf)
-    top_vals, top_idx = torch.topk(seed_vals.T, num_runs, dim=-1)  # [V, R]
-    # starts[r] holds, for every slice v, that slice's r-th best seed
-    starts = torch.gather(seeds.transpose(0, 1), 1, top_idx[..., None].expand(V, num_runs, D))
-    starts = starts.transpose(0, 1)  # [R, V, D]
+            seed_vals = torch.where(_feasible(residual_fn, pool), seed_vals, -torch.inf)
+    if mesh is None:
+        top_vals, top_idx = torch.topk(seed_vals.T, num_runs, dim=-1)  # [V, R]
+        # starts[r] holds, for every slice v, that slice's r-th best seed
+        starts = torch.gather(seeds.transpose(0, 1), 1, top_idx[..., None].expand(V, num_runs, D))
+        starts = starts.transpose(0, 1)  # [R, V, D]
+    else:
+        top_vals, starts = sharded_best(seed_vals, pool, mesh, k=num_runs)  # [R, V], [R, V, D]
+        top_vals = top_vals.T
 
     # slices share the line search on their sum, so scale each by its best seed value
     # (equal to 1 when V == 1); no slice's argmax changes and gradients stay separate
@@ -160,13 +179,15 @@ def _optimize_continuous_core(
 
     if discrete_mask is None:
         discrete_mask = torch.zeros(D, dtype=torch.bool, device=seeds.device)
-    run_lower = torch.where(discrete_mask, starts, lower).reshape(num_runs, V * D)
-    run_upper = torch.where(discrete_mask, starts, upper).reshape(num_runs, V * D)
+    runs = starts if mesh is None else starts[local_slice(num_runs, mesh)]
+    R = runs.shape[0]
+    run_lower = torch.where(discrete_mask, runs, lower).reshape(R, V * D)
+    run_upper = torch.where(discrete_mask, runs, upper).reshape(R, V * D)
     res = minimize_lbfgs(
-        neg_sum_acq, starts.reshape(num_runs, V * D), lower=run_lower, upper=run_upper,
+        neg_sum_acq, runs.reshape(R, V * D), lower=run_lower, upper=run_upper,
         max_iters=max_iters,
     )
-    opt_points = res.x.reshape(num_runs, V, D)
+    opt_points = res.x.reshape(R, V, D)
     with torch.no_grad():
         opt_vals = acq(opt_points)  # [R, V]
         opt_vals = torch.where(torch.isfinite(opt_vals), opt_vals, -torch.inf)
@@ -174,12 +195,16 @@ def _optimize_continuous_core(
             opt_vals = torch.where(_feasible(residual_fn, opt_points), opt_vals, -torch.inf)
 
     slices = torch.arange(V, device=seeds.device)
-    best_run = torch.argmax(opt_vals, dim=0)  # [V]
-    run_pts = opt_points[best_run, slices]
-    run_best = opt_vals[best_run, slices]
-    seed_best_idx = torch.argmax(seed_vals, dim=0)
-    seed_pts = seeds[seed_best_idx, slices]
-    seed_best = seed_vals[seed_best_idx, slices]
+    if mesh is None:
+        best_run = torch.argmax(opt_vals, dim=0)  # [V]
+        run_pts = opt_points[best_run, slices]
+        run_best = opt_vals[best_run, slices]
+        seed_best_idx = torch.argmax(seed_vals, dim=0)
+        seed_pts = seeds[seed_best_idx, slices]
+        seed_best = seed_vals[seed_best_idx, slices]
+    else:
+        run_best, run_pts = (t[0] for t in sharded_best(opt_vals, opt_points, mesh))
+        seed_pts, seed_best = starts[0], top_vals[:, 0]  # the pool's best seed per slice
     use_run = run_best >= seed_best
     points = torch.where(use_run[:, None], run_pts, seed_pts)
     values = torch.where(use_run, run_best, seed_best)
@@ -204,8 +229,9 @@ def generate_continuous_optimizer(
         generator = generator_for(generator, space.device)
         acq, V = _as_vectorized(f)
         D = space.dimension
-        N = num_initial_samples or max(NUM_SAMPLES_MIN, NUM_SAMPLES_DIM * D)
-        R = min(num_optimization_runs or NUM_RUNS_DIM * D, N)
+        mesh = sharding_mesh()
+        N = round_to_mesh(num_initial_samples or max(NUM_SAMPLES_MIN, NUM_SAMPLES_DIM * D))
+        R = min(round_to_mesh(num_optimization_runs or NUM_RUNS_DIM * D), N)
 
         if isinstance(space, TaggedMultiSearchSpace):
             # each slice searches its own region; V may repeat the regions
@@ -231,7 +257,7 @@ def generate_continuous_optimizer(
 
         residual_fn = space.constraints_residuals if space.has_constraints else None
         points, values, improvement = _optimize_continuous_core(
-            acq, make_seeds(), lower, upper, R, max_iters, discrete_mask, residual_fn
+            acq, make_seeds(), lower, upper, R, max_iters, discrete_mask, residual_fn, mesh
         )
         scalar("spo_af_evaluations", N + R * max_iters)
         deferred_scalar("spo_improvement_on_initial_samples", lambda: improvement.sum())
@@ -246,7 +272,7 @@ def generate_continuous_optimizer(
                 )
             recoveries += 1
             new_points, new_values, _ = _optimize_continuous_core(
-                acq, make_seeds(), lower, upper, R, max_iters, discrete_mask, residual_fn
+                acq, make_seeds(), lower, upper, R, max_iters, discrete_mask, residual_fn, mesh
             )
             replace = ~torch.isfinite(values) & torch.isfinite(new_values)
             points = torch.where(replace[:, None], new_points, points)

@@ -9,6 +9,7 @@ import torch
 
 from ...data import Dataset
 from ...ops.kernels import Stationary
+from ...parallel import current_pool_sharding, round_to_mesh
 from ..interfaces import ReparametrizationSampler, TrajectorySampler
 from . import posterior as P
 from .priors import GPPriors
@@ -172,11 +173,14 @@ class GaussianProcessRegression:
         self._cache = self._build_cache()
 
     def optimize(self, dataset: Dataset) -> GPRTrainingResult:
-        """Multi-start training of the hyperparameters on ``dataset``."""
+        """Multi-start training of the hyperparameters on ``dataset``. Under a global mesh
+        (:mod:`trieste_tpu_torch.parallel`) the restarts are rounded up to a multiple of
+        its size and sharded over it."""
         result = fit_gpr(
             self._generator, self._params, dataset.query_points, dataset.observations,
-            dataset.mask, num_starts=self._num_kernel_samples, train_noise=self._train_noise,
-            max_iters=self._max_optimize_iters, priors=self._priors,
+            dataset.mask, num_starts=round_to_mesh(self._num_kernel_samples),
+            train_noise=self._train_noise, max_iters=self._max_optimize_iters,
+            pool_sharding=current_pool_sharding(), priors=self._priors,
         )
         self._params = result.params
         self._dataset = dataset

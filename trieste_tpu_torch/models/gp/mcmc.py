@@ -23,6 +23,7 @@ from ...data import Dataset
 from ...ops.hmc import HMCResults, draw_hmc, hmc_sample_from_draws
 from ...ops.kernels import Stationary, gram
 from ...ops.linalg import solve_lower
+from ...parallel import gather_rows, local_slice, round_to_mesh, sharding_mesh
 from ...utils.misc import flatten_leading_dims, jitter_for, standard_normal
 from ..interfaces import ReparametrizationSampler, TrajectorySampler
 from . import posterior as P
@@ -240,16 +241,26 @@ class GaussianProcessRegressionMCMC:
         self._refresh_caches()
 
     def optimize(self, dataset: Dataset) -> HMCResults:
-        """Run the chains on ``dataset`` and keep a thinned stack of their samples."""
+        """Run the chains on ``dataset`` and keep a thinned stack of their samples. Under a
+        global mesh the chains are rounded up to a multiple of its size: every rank draws
+        them all, runs its block (each chain adapts its own step size, so a block runs as
+        it would among all) and gathers the results."""
         self._dataset = dataset
         u0 = pack_params(self._template, train_noise=True)
+        num_chains = round_to_mesh(self._num_chains)
         jitter, momenta, uniforms = _draw_chains(
-            self._generator, self._num_chains, self._num_warmup + self._num_samples_per_chain, u0
+            self._generator, num_chains, self._num_warmup + self._num_samples_per_chain, u0
         )
+        mesh = sharding_mesh()
+        if mesh is not None:
+            block = local_slice(num_chains, mesh)
+            jitter, momenta, uniforms = jitter[block], momenta[:, block], uniforms[:, block]
         results = _run_chains_from_draws(
             self._template, dataset.query_points, dataset.observations, dataset.mask, u0,
             jitter, momenta, uniforms, self._num_warmup,
         )
+        if mesh is not None:
+            results = HMCResults(*(gather_rows(t, mesh) for t in results))
         self._params_stack = unpack_params(
             _thin(results.samples, self._num_retained), self._template, train_noise=True
         )

@@ -3,6 +3,8 @@
 * :class:`IndependentReparametrizationSampler` and :class:`BatchReparametrizationSampler`:
   reparametrization-trick samplers whose base normal draws are frozen at first use, so an
   acquisition surface stays one deterministic function over an optimizer's evaluations.
+  Under a global mesh a single batch (``at [B, D]``) shards the sample axis: each rank
+  computes its block of the samples and the blocks are gathered.
 * :class:`RandomFourierFeatureTrajectorySampler` and :class:`DecoupledTrajectorySampler`:
   function-draw ("trajectory") samplers. The decoupled sampler implements Matheron's rule:
   a random-Fourier prior draw updated pathwise through the cached training Cholesky.
@@ -24,6 +26,7 @@ import torch
 
 from ...ops.kernels import MATERN12, MATERN32, MATERN52, RBF, Stationary, gram
 from ...ops.linalg import cho_solve, masked_cholesky, nan_cholesky
+from ...parallel import Mesh, gather_rows, local_slice, replicated_inputs, sharding_mesh
 from ...utils.misc import generator_for, jitter_for, standard_normal
 from ..interfaces import (
     ReparametrizationSampler,
@@ -47,6 +50,16 @@ def batch_reparam_sample(
     return mean[..., None, :, :] + draws.permute(*range(draws.ndim - 3), -1, -2, -3)
 
 
+def _padded_block(eps: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of the frozen draws' sample axis ``axis``, zero-padded to a
+    multiple of the mesh size (the padded samples are cut after the gather)."""
+    S = eps.shape[axis]
+    padded = -(-S // mesh.size) * mesh.size
+    pad = [0, 0] * (eps.ndim - 1 - axis) + [0, padded - S]
+    return torch.nn.functional.pad(eps, pad).narrow(axis, local_slice(padded, mesh).start,
+                                                    padded // mesh.size)
+
+
 class IndependentReparametrizationSampler(ReparametrizationSampler):
     """Marginal reparametrization sampler: ``f = mean + sqrt(var) * eps`` with frozen
     ``eps [S, 1, L]``."""
@@ -57,7 +70,12 @@ class IndependentReparametrizationSampler(ReparametrizationSampler):
         mean, var = self._model.predict(at[..., None, :, :])  # [..., 1, B, L]
         if self._eps is None:
             self._eps = standard_normal(generator, (self._sample_size, 1, mean.shape[-1]), mean)
-        return mean + torch.sqrt(var) * self._eps  # [..., S, B, L]
+        mesh = sharding_mesh() if at.ndim == 2 else None
+        if mesh is None:
+            return mean + torch.sqrt(var) * self._eps  # [..., S, B, L]
+        eps = _padded_block(self._eps, 0, mesh)  # a single batch: shard the sample axis
+        mean, var = replicated_inputs(mesh, mean, var)
+        return gather_rows(mean + torch.sqrt(var) * eps, mesh)[: self._sample_size]
 
 
 class BatchReparametrizationSampler(ReparametrizationSampler):
@@ -82,7 +100,12 @@ class BatchReparametrizationSampler(ReparametrizationSampler):
             self._eps = standard_normal(
                 generator, (mean.shape[-1], batch_size, self._sample_size), mean
             )
-        return batch_reparam_sample(mean, cov, self._eps, jitter)
+        mesh = sharding_mesh() if at.ndim == 2 else None
+        if mesh is None:
+            return batch_reparam_sample(mean, cov, self._eps, jitter)
+        eps = _padded_block(self._eps, 2, mesh)  # a single batch: shard the sample axis
+        mean, cov = replicated_inputs(mesh, mean, cov)
+        return gather_rows(batch_reparam_sample(mean, cov, eps, jitter), mesh)[: self._sample_size]
 
 
 def spectral_frequencies_from_draws(

@@ -24,13 +24,13 @@ import torch
 
 from ...data import Dataset
 from ...ops.kernels import Stationary, gram
-from ...ops.lbfgs import minimize_lbfgs
 from ...ops.linalg import cho_solve, nan_cholesky, solve_lower, solve_upper
+from ...parallel import Mesh, current_pool_sharding, round_to_mesh
 from ...utils.misc import flatten_leading_dims, generator_for, jitter_for
 from ..interfaces import ReparametrizationSampler, TrajectorySampler
 from .posterior import _draw_joint_eps, _joint_samples
 from .priors import GPPriors, log_prior_density, sample_log_params, squeeze_kernel
-from .training import MIN_VARIANCE, NOISE_FLOOR
+from .training import MIN_VARIANCE, NOISE_FLOOR, minimize_restarts
 
 RESTART_SHIFT = 1.5
 """Without priors, a restart shifts each log hyperparameter uniformly within ±1.5."""
@@ -253,20 +253,22 @@ def fit_sgpr_from_starts(
     train_inducing: bool = True,
     max_iters: int = 100,
     priors: Optional[GPPriors] = None,
+    pool_sharding: Optional[Mesh] = None,
 ) -> SGPRTrainingResult:
     """Lockstep L-BFGS from every row of ``starts`` on the negative collapsed bound (the
-    negative log posterior with ``priors``); the best final loss wins."""
+    negative log posterior with ``priors``); the best final loss wins. ``pool_sharding``
+    shards the rows over its mesh (:func:`~.training.minimize_restarts`)."""
 
     def loss_fn(u: torch.Tensor) -> torch.Tensor:
         p = sgpr_unpack(u, params, train_noise, train_inducing)
         return -sgpr_elbo(p, X, Y, mask) - log_prior_density(p.kernel, priors)
 
-    results = minimize_lbfgs(loss_fn, starts, max_iters=max_iters)
-    losses = torch.where(torch.isfinite(results.fun), results.fun, torch.inf)
-    best = torch.argmin(losses)
-    best_params = sgpr_unpack(results.x[best], params, train_noise, train_inducing)
+    best_x, best_loss, losses = minimize_restarts(
+        loss_fn, starts, max_iters=max_iters, pool_sharding=pool_sharding
+    )
+    best_params = sgpr_unpack(best_x, params, train_noise, train_inducing)
     best_params = best_params.replace(kernel=squeeze_kernel(best_params.kernel, priors))
-    return SGPRTrainingResult(params=best_params, loss=losses[best], all_losses=losses)
+    return SGPRTrainingResult(params=best_params, loss=best_loss, all_losses=losses)
 
 
 def fit_sgpr(
@@ -281,13 +283,14 @@ def fit_sgpr(
     train_inducing: bool = True,
     max_iters: int = 100,
     priors: Optional[GPPriors] = None,
+    pool_sharding: Optional[Mesh] = None,
 ) -> SGPRTrainingResult:
     """Multi-start MAP (maximum-bound without priors) fit of an SGPR, restarts drawn from
-    ``generator``."""
+    ``generator``; ``pool_sharding`` shards them over its mesh."""
     starts = sgpr_starts(generator, params, num_starts, train_noise, train_inducing, priors)
     return fit_sgpr_from_starts(
         starts, params, X, Y, mask, train_noise=train_noise, train_inducing=train_inducing,
-        max_iters=max_iters, priors=priors,
+        max_iters=max_iters, priors=priors, pool_sharding=pool_sharding,
     )
 
 
@@ -418,10 +421,12 @@ class SparseGaussianProcessRegression(_SparseModel):
         self._refresh()
 
     def optimize(self, dataset: Dataset) -> SGPRTrainingResult:
-        result = fit_sgpr(
+        result = fit_sgpr(  # under a global mesh the restarts are rounded and sharded
             self._generator, self._params, dataset.query_points, dataset.observations,
-            dataset.mask, num_starts=self._num_starts, train_noise=self._train_noise,
-            train_inducing=self._train_inducing, max_iters=self._max_iters, priors=self._priors,
+            dataset.mask, num_starts=round_to_mesh(self._num_starts),
+            train_noise=self._train_noise, train_inducing=self._train_inducing,
+            max_iters=self._max_iters, priors=self._priors,
+            pool_sharding=current_pool_sharding(),
         )
         self._params = result.params
         self._dataset = dataset
@@ -579,19 +584,21 @@ def fit_svgp_from_starts(
     train_noise: bool = True,
     max_iters: int = 100,
     priors: Optional[GPPriors] = None,
+    pool_sharding: Optional[Mesh] = None,
 ) -> SVGPTrainingResult:
     """Lockstep L-BFGS over the hyperparameters from every row of ``starts``, each loss
     the negative ELBO at the optimal ``q`` for those hyperparameters (with a Gaussian
-    likelihood, the collapsed bound); then ``q`` is set once for the winner."""
+    likelihood, the collapsed bound); then ``q`` is set once for the winner.
+    ``pool_sharding`` shards the rows over its mesh."""
 
     def loss_fn(u: torch.Tensor) -> torch.Tensor:
         p = params.replace(**_unpack_hyper(u, params, train_noise))
         p = svgp_optimal_variational(p, X, Y, mask)
         return -svgp_elbo(p, X, Y, mask) - log_prior_density(p.kernel, priors)
 
-    results = minimize_lbfgs(loss_fn, starts, max_iters=max_iters)
-    losses = torch.where(torch.isfinite(results.fun), results.fun, torch.inf)
-    p = params.replace(**_unpack_hyper(results.x[torch.argmin(losses)], params, train_noise))
+    best_x, _, _ = minimize_restarts(loss_fn, starts, max_iters=max_iters,
+                                     pool_sharding=pool_sharding)
+    p = params.replace(**_unpack_hyper(best_x, params, train_noise))
     p = svgp_optimal_variational(p.replace(kernel=squeeze_kernel(p.kernel, priors)), X, Y, mask)
     return SVGPTrainingResult(params=p, loss=-svgp_elbo(p, X, Y, mask))
 
@@ -607,12 +614,14 @@ def fit_svgp(
     max_iters: int = 100,
     num_starts: int = 5,
     priors: Optional[GPPriors] = None,
+    pool_sharding: Optional[Mesh] = None,
 ) -> SVGPTrainingResult:
     """Multi-start fit of the hyperparameters through the optimal-``q`` map, restarts
-    drawn from ``generator``."""
+    drawn from ``generator``; ``pool_sharding`` shards them over its mesh."""
     starts = svgp_starts(generator, params, num_starts, train_noise, priors)
     return fit_svgp_from_starts(
-        starts, params, X, Y, mask, train_noise=train_noise, max_iters=max_iters, priors=priors
+        starts, params, X, Y, mask, train_noise=train_noise, max_iters=max_iters, priors=priors,
+        pool_sharding=pool_sharding,
     )
 
 
@@ -770,9 +779,10 @@ class SparseVariational(_SparseModel):
             )
         else:
             restarts = torch.Generator(device=dataset.device).manual_seed(0)
-            result = fit_svgp(
+            result = fit_svgp(  # under a global mesh 5 restarts are rounded and sharded
                 restarts, self._params, X, Y, mask, train_noise=self._train_noise,
-                max_iters=self._max_iters, priors=self._priors,
+                max_iters=self._max_iters, num_starts=round_to_mesh(5), priors=self._priors,
+                pool_sharding=current_pool_sharding(),
             )
         self._params = result.params
         self._dataset = dataset

@@ -9,15 +9,18 @@ the loss carries the log prior density, and the winner is squeezed into a wide w
 around the prior locs.
 
 :func:`randomize_starts` and :func:`fit_gpr_from_starts` split :func:`fit_gpr` so that a
-caller (a test) can hand in its own starts.
+caller (a test) can hand in its own starts. With ``pool_sharding`` over a mesh of more
+than one rank (:mod:`trieste_tpu_torch.parallel`) each rank runs its block of the restarts
+and the winner is gathered, so every rank ends with the same parameters.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from ...ops.lbfgs import minimize_lbfgs
+from ...parallel import Mesh, gather_rows, local_slice, sharded_best
 from .posterior import GPRParams, log_marginal_likelihood
 from .priors import GPPriors, log_prior_density, sample_log_params, squeeze_kernel
 
@@ -88,6 +91,32 @@ def randomize_starts(
     return torch.cat([u0[None], rest])
 
 
+def minimize_restarts(
+    loss_fn: Callable[[torch.Tensor], torch.Tensor],
+    starts: torch.Tensor,
+    *,
+    max_iters: int,
+    pool_sharding: Optional[Mesh] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Lockstep L-BFGS from every row of ``starts [R, P]`` → ``(the best run's x [P], its
+    loss, every run's final loss [R])``; a non-finite loss counts as ``+inf`` and ties go
+    to the first run. Sharded, each rank runs its block of the rows (the last row repeated
+    up to a multiple of the mesh size: a repeat never beats its original)."""
+    mesh = pool_sharding if pool_sharding is not None and pool_sharding.size > 1 else None
+    if mesh is None:
+        results = minimize_lbfgs(loss_fn, starts, max_iters=max_iters)
+        losses = torch.where(torch.isfinite(results.fun), results.fun, torch.inf)
+        best = torch.argmin(losses)
+        return results.x[best], losses[best], losses
+    R = starts.shape[0]
+    padded = -(-R // mesh.size) * mesh.size
+    starts = torch.cat([starts, starts[-1:].expand(padded - R, -1)])
+    results = minimize_lbfgs(loss_fn, starts[local_slice(padded, mesh)], max_iters=max_iters)
+    losses = torch.where(torch.isfinite(results.fun), results.fun, torch.inf)
+    best_loss, best_x = sharded_best(losses, results.x, mesh, largest=False)
+    return best_x[0], best_loss[0], gather_rows(losses, mesh)[:R]
+
+
 def fit_gpr_from_starts(
     starts: torch.Tensor,
     params: GPRParams,
@@ -98,9 +127,11 @@ def fit_gpr_from_starts(
     train_noise: bool = True,
     max_iters: int = 100,
     priors: Optional[GPPriors] = None,
+    pool_sharding: Optional[Mesh] = None,
 ) -> GPRTrainingResult:
     """Run L-BFGS from every row of ``starts [R, P]`` on the negative log marginal
-    likelihood (negative log posterior with ``priors``) and keep the best."""
+    likelihood (negative log posterior with ``priors``) and keep the best;
+    ``pool_sharding`` shards the rows over its mesh (:func:`minimize_restarts`)."""
 
     def loss_fn(u: torch.Tensor) -> torch.Tensor:
         p = unpack_params(u, params, train_noise)
@@ -109,13 +140,13 @@ def fit_gpr_from_starts(
             nll = nll - log_prior_density(p.kernel, priors)
         return nll
 
-    results = minimize_lbfgs(loss_fn, starts, max_iters=max_iters)
-    losses = torch.where(torch.isfinite(results.fun), results.fun, torch.inf)
-    best = torch.argmin(losses)
-    best_params = unpack_params(results.x[best], params, train_noise)
+    best_x, best_loss, losses = minimize_restarts(
+        loss_fn, starts, max_iters=max_iters, pool_sharding=pool_sharding
+    )
+    best_params = unpack_params(best_x, params, train_noise)
     if priors is not None:
         best_params = best_params.replace(kernel=squeeze_kernel(best_params.kernel, priors))
-    return GPRTrainingResult(params=best_params, loss=losses[best], all_losses=losses)
+    return GPRTrainingResult(params=best_params, loss=best_loss, all_losses=losses)
 
 
 def fit_gpr(
@@ -128,11 +159,14 @@ def fit_gpr(
     num_starts: int = 10,
     train_noise: bool = True,
     max_iters: int = 100,
+    pool_sharding: Optional[Mesh] = None,
     priors: Optional[GPPriors] = None,
 ) -> GPRTrainingResult:
     """Multi-start MAP (or, without priors, maximum-likelihood) fit of the GPR
-    hyperparameters, restarts drawn from ``generator``."""
+    hyperparameters, restarts drawn from ``generator`` (every rank draws them all);
+    ``pool_sharding`` shards the restarts over its mesh."""
     starts = randomize_starts(generator, params, num_starts, train_noise, priors=priors)
     return fit_gpr_from_starts(
-        starts, params, X, Y, mask, train_noise=train_noise, max_iters=max_iters, priors=priors
+        starts, params, X, Y, mask, train_noise=train_noise, max_iters=max_iters, priors=priors,
+        pool_sharding=pool_sharding,
     )

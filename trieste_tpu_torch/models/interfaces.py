@@ -23,6 +23,16 @@ class ProbabilisticModel(Protocol):
         """Marginal mean and variance at ``query_points [..., D]`` → two ``[..., L]``."""
         raise NotImplementedError
 
+    def sample(
+        self, generator: Optional[torch.Generator], query_points: torch.Tensor, num_samples: int
+    ) -> torch.Tensor:
+        """``num_samples`` independent joint samples, ``[..., S, N, L]``."""
+        raise NotImplementedError
+
+    def log(self, dataset: Optional[Dataset] = None) -> None:
+        """Queue model-specific summaries for the loop's writer."""
+        raise NotImplementedError
+
 
 @runtime_checkable
 class TrainableProbabilisticModel(ProbabilisticModel, Protocol):

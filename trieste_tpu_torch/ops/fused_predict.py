@@ -29,6 +29,7 @@ through the exact reference math.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -37,7 +38,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -66,6 +67,8 @@ builds = 0
 
 loads = 0
 """Number of times :func:`library` loaded a built library in this process."""
+
+_sharded_pool: Optional[Tuple[int, int]] = None  # (storage, ranks) of sharded_pool
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_predict.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -258,11 +261,36 @@ def launch_packed(
     return mean, var
 
 
+@contextlib.contextmanager
+def sharded_pool(block: torch.Tensor, num_shards: int) -> Iterator[None]:
+    """While a rank scores ``block``, its block of a pool split over ``num_shards`` ranks,
+    :func:`can_fuse` counts a query that is a view of the pool as ``num_shards`` times its
+    rows: the JAX gate sees the global array, and a pool that takes the kernel unsharded
+    takes it on every rank. Any other query (pending points, a grid, training rows) keeps
+    its own row count."""
+    global _sharded_pool
+    previous = _sharded_pool
+    _sharded_pool = (block.untyped_storage().data_ptr(), num_shards)
+    try:
+        yield
+    finally:
+        _sharded_pool = previous
+
+
+def _pool_rows(flat: torch.Tensor) -> int:
+    """The rows the gate counts for ``flat``: the whole pool's for a view of the block
+    under :func:`sharded_pool`, else its own."""
+    if _sharded_pool is not None and flat.untyped_storage().data_ptr() == _sharded_pool[0]:
+        return flat.shape[0] * _sharded_pool[1]
+    return flat.shape[0]
+
+
 def can_fuse(params, cache, flat: torch.Tensor) -> bool:
     """The JAX package's gate (``trieste_tpu/ops/fused_predict.py:can_fuse``): stationary
     kernel, ``LinvT`` present, fp32, unbatched 2-D operands, ``P <= 8``, at least
-    :data:`MIN_POINTS` queries, capacity at most :data:`MAX_TRAIN` and a noise/signal
-    ratio of at least 1e-5; then the query tensor must lie on a CUDA device (or :data:`CPU_PLAIN` must be set)."""
+    :data:`MIN_POINTS` queries (those of the whole pool under :func:`sharded_pool`),
+    capacity at most :data:`MAX_TRAIN` and a noise/signal ratio of at least 1e-5; then
+    the query tensor must lie on a CUDA device (or :data:`CPU_PLAIN` must be set)."""
     kernel = params.kernel
     if kernel.kind not in KINDS or cache.LinvT is None:
         return False
@@ -274,7 +302,7 @@ def can_fuse(params, cache, flat: torch.Tensor) -> bool:
         return False
     if kernel.variance.ndim != 0 or kernel.lengthscales.ndim > 1:
         return False
-    if flat.shape[0] < MIN_POINTS or cache.X.shape[0] > MAX_TRAIN:
+    if _pool_rows(flat) < MIN_POINTS or cache.X.shape[0] > MAX_TRAIN:
         return False
     # the variance contract is absolute: below this ratio the true variance near the
     # data is smaller than the error (one device-to-host read per large pool)

@@ -71,7 +71,12 @@ def minimize_lbfgs(
     max_iters: int = 100,
 ) -> LBFGSResults:
     """Minimize every row of ``x0 [R, n]`` under ``fn: [R, n] -> [R]``, within optional
-    bounds ``[n]`` or ``[R, n]``."""
+    bounds ``[n]`` or ``[R, n]``.
+
+    This batched form is the counterpart of the JAX package's ``vmapped_minimize_lbfgs``
+    and is exported under that name too. The JAX ``minimize_lbfgs`` takes one start
+    ``x0 [n]`` and a scalar objective; here that is the batch of one run,
+    ``minimize_lbfgs(lambda x: f(x[0])[None], x0[None])``."""
     R, n = x0.shape
     dtype, device = x0.dtype, x0.device
     lo = torch.full((n,), -torch.inf, dtype=dtype, device=device) if lower is None else lower
@@ -162,3 +167,8 @@ def minimize_lbfgs(
         done = done | (active & (conv_now | ~ls_ok | (it >= max_iters)))
         evals = evals + active.long() * (ls_evals + 1)
     return LBFGSResults(x, f, converged, it, evals)
+
+
+vmapped_minimize_lbfgs = minimize_lbfgs
+"""The JAX package's name for L-BFGS over a batch of starts, which the port's
+:func:`minimize_lbfgs` is."""

@@ -13,6 +13,12 @@ import torch
 from ..utils.misc import jitter_for
 
 
+def add_jitter(K: torch.Tensor, jitter: Optional[float] = None) -> torch.Tensor:
+    """Add ``jitter * I`` to the trailing two dims of ``K`` (default: the dtype's jitter)."""
+    j = jitter_for(K.dtype) if jitter is None else jitter
+    return K + j * torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+
+
 def masked_gram(K: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Replace padded rows/cols of a ``[..., N, N]`` Gram matrix by the identity."""
     m = mask.to(K.dtype)
@@ -61,3 +67,10 @@ def solve_upper(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve ``(L Lᵀ) x = b``."""
     return solve_upper(L, solve_lower(L, b))
+
+
+def masked_logdet_from_chol(L: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``log det`` of the (masked) matrix whose Cholesky factor is ``L``. The padded
+    diagonal entries of a masked factor are 1, so ``mask`` needs no correction; it is
+    accepted for the JAX signature's sake."""
+    return 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
