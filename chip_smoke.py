@@ -204,14 +204,23 @@ Phases, each printing its own lines and its seconds:
    3000-row pool (1500 rows a rank), which must launch the kernel once, as unsharded. Each
    rank prints its seconds, launches and the bytes it received; two ranks time-share one
    card, so those seconds say nothing of scaling;
-32. one JSON line describing each kernel. Its ``max_abs_err`` covers every case held to
+32. the tutorials (``examples_torch/``): each of the 14 in this process on ``cuda`` at its
+   smallest budget (``main(1)``, or ``main()`` for the two without one), with the kernel
+   phase 1 built; each prints its seconds, kernel launches and returned dict, which must
+   hold finite numbers and pass the example's own checks (the Ask/Tell resume asks for the
+   uninterrupted run's point bit for bit, the flaky observer's first run is an ``Err`` and
+   its resume ``Ok``, the explicitly constrained point is feasible, the EHVI front is
+   non-dominated, the mixed space's point is on its grid); the launches must equal
+   ``EXAMPLE_LAUNCHES``, written from the fused gate before the first card run, and the
+   kernel is held against its fp64 plain version on every pool an example scored;
+33. one JSON line describing each kernel. Its ``max_abs_err`` covers every case held to
    the contract, including the kernel on the fitted models that phases 4 to 7, 12, 14 to
-   17, 19, 25 and 31 leave behind; the white-noise case has keys of its own.
+   17, 19, 25, 31 and 32 leave behind; the white-noise case has keys of its own.
 
 Run with ``--multi-device-rank RANK WORLD COORDINATOR DIRECTORY``, the script is one of
 phase 31's child processes.
 
-Phases 6 to 31 each print their seconds and phases 11 to 31 their kernel launches; phases 6
+Phases 6 to 32 each print their seconds and phases 11 to 32 their kernel launches; phases 6
 to 21, 23, 25 to 27 and 29 to 30 the bytes reckoned for their largest tensors and
 ``torch.cuda.max_memory_allocated()``.
 
@@ -349,6 +358,22 @@ MULTI_DEVICE_EI_RTOL = 1e-4
 COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_reduce", "broadcast", "reduce",
                "gather", "scatter", "reduce_scatter", "reduce_scatter_tensor", "all_to_all",
                "all_to_all_single", "barrier", "all_gather_object", "broadcast_object_list")
+# Phase 32: the tutorials of examples_torch/, each at its smallest budget
+EXAMPLES = (
+    "active_learning", "ask_tell_optimization", "batch_optimization", "deep_models",
+    "expected_improvement", "inequality_constraints", "mixed_search_spaces",
+    "multi_chip_scaling", "multi_objective_ehvi", "multifidelity_modelling",
+    "recovering_from_errors", "thompson_sampling", "trust_region", "visualizing_and_logging",
+)
+EXAMPLES_WITHOUT_BUDGET = ("multifidelity_modelling", "recovering_from_errors")
+# Their kernel launches, predicted from the fused gate before the first card run (a pool
+# of at least MIN_POINTS rows, capacity at most 1024, a noise/signal ratio of at least
+# 1e-5 after the fit; PERF.md §6): Gardner ECI's two default-noise models score the
+# step's 5000-row pool once each, as do EHVI's two members at noise 1e-5; every example at
+# noise 1e-7 is under the ratio, active learning's Branin GPs (noise 1e-5 against a kernel
+# variance in the thousands) too, and the deep, sparse and multifidelity models score no
+# 2048-row pool with an exact GP. Every other example: 0
+EXAMPLE_LAUNCHES = {"inequality_constraints": 2, "multi_objective_ehvi": 2}
 
 
 def fail(msg: str) -> None:
@@ -2683,6 +2708,100 @@ def multi_device(model, data, space, dev, max_abs_err):
     return max_abs_err, [r["launches"] + r["gate_launches"] for r in ranks]
 
 
+def _numbers(value):
+    """Every int and float in an example's returned value, through lists and dicts."""
+    if isinstance(value, dict):
+        return [x for v in value.values() for x in _numbers(v)]
+    if isinstance(value, (list, tuple)):
+        return [x for v in value for x in _numbers(v)]
+    return [value] if isinstance(value, (int, float)) else []
+
+
+def example_checks(name, out):
+    """What an example's returned dict must show, as ``tests/test_torch_examples.py``
+    holds it on the CPU; returns the first fault, or ``None``."""
+    if not _numbers(out) or not all(math.isfinite(x) for x in _numbers(out)):
+        return "a returned number is not finite"
+    if name == "ask_tell_optimization" and out["resumes_exactly"] is not True:
+        return "the resumed optimizer asked for another point than the uninterrupted one"
+    if name == "recovering_from_errors" and (out["first_run_ok"] or not out["resumed_ok"]):
+        return "the first run is not an Err, or the resumed run not Ok"
+    if name == "inequality_constraints" and not (
+            out["explicit_feasible"] and 0.3 - 1e-5 <= sum(out["explicit_point"]) <= 1.2 + 1e-5):
+        return "the explicitly constrained point is infeasible"
+    if name == "multi_objective_ehvi":
+        front = torch.tensor(out["front"], dtype=torch.float64)
+        dominated = ((front[None] <= front[:, None]).all(-1)
+                     & (front[None] < front[:, None]).any(-1)).any()
+        if bool(dominated):
+            return "a point of the EHVI front is dominated"
+    if name == "mixed_search_spaces" and out["x2_on_grid"] is not True:
+        return "the best point's discrete coordinate is off the grid"
+    return None
+
+
+def run_examples(max_abs_err):
+    """Phase 32: every tutorial of ``examples_torch/`` in this process on ``cuda`` at its
+    smallest budget, with the kernel phase 1 built; each must return what its checks
+    expect and launch the kernel as ``EXAMPLE_LAUNCHES`` predicts, and the kernel is held
+    against its fp64 plain version on every pool it scored. Returns ``(max_abs_err,
+    launches per example)``."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+    import types
+
+    import numpy as np
+
+    from trieste_tpu_torch.ops import fused_predict as fp
+
+    t_phase = time.perf_counter()
+    directory = Path(__file__).resolve().parent / "examples_torch"
+    launches = {}
+    held = []
+    with tempfile.TemporaryDirectory() as logs:
+        tempdir, tempfile.tempdir = tempfile.tempdir, logs  # the logging example's logdir
+        try:
+            for name in EXAMPLES:
+                spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                              directory / f"{name}.py")
+                module = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(module)
+                args = () if name in EXAMPLES_WITHOUT_BUDGET else (1,)
+                np.random.seed(0)  # the fits' restarts, as the CPU tests pin them
+                pools, printed = [], io.StringIO()
+                original = recording_pools(pools)
+                before = fp.launches
+                try:
+                    with contextlib.redirect_stdout(printed):
+                        out, seconds = timed(lambda: module.main(*args, device="cuda"))
+                except BaseException:
+                    print(printed.getvalue()[-6000:])
+                    raise
+                finally:
+                    fp.fused_predict_f = original
+                launches[name] = fp.launches - before
+                print(f"phase 32 {name}: {seconds:.2f} s, kernel launches {launches[name]} "
+                      f"(predicted {EXAMPLE_LAUNCHES.get(name, 0)}), returned {json.dumps(out)}")
+                fault = example_checks(name, out)
+                if fault:
+                    print(printed.getvalue()[-6000:])
+                    fail(f"phase 32 {name}: {fault}")
+                held += [(name, params, cache, flat) for params, cache, flat in pools]
+        finally:
+            tempfile.tempdir = tempdir
+    for i, (name, params, cache, flat) in enumerate(held):
+        model = types.SimpleNamespace(params=params, posterior_cache=cache)
+        max_abs_err = max(max_abs_err, hold_kernel_on_pool(f"phase 32 {name} pool {i}",
+                                                           model, flat))
+    predicted = {name: EXAMPLE_LAUNCHES.get(name, 0) for name in EXAMPLES}
+    if launches != predicted:
+        fail(f"phase 32: kernel launches {launches}, predicted {predicted}")
+    print(f"phase 32 seconds: {time.perf_counter() - t_phase:.2f}")
+    return max_abs_err, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3301,8 +3420,10 @@ def main() -> int:
         hartmann_model, hartmann_final, hartmann_space, dev, max_abs_err
     )
     print(f"phases 1-31 seconds: {time.perf_counter() - t_start:.2f}")
+    max_abs_err, examples_launches = run_examples(max_abs_err)
+    print(f"phases 1-32 seconds: {time.perf_counter() - t_start:.2f}")
 
-    # -- phase 32: kernels -----------------------------------------------------------
+    # -- phase 33: kernels -----------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "fused_predict",
         "route": "cuda",
@@ -3333,6 +3454,7 @@ def main() -> int:
         "launches_deep_models": deep_models_launches,
         "launches_deep_models_full_width": deep_models_full_width_launches,
         "launches_multi_device": multi_device_launches,
+        "launches_examples": examples_launches,
         "max_abs_err": max_abs_err,
         "white_noise_abs_err": white_noise["abs_err"],
         "white_noise_plain_fp32_abs_err": white_noise["plain_fp32_abs_err"],
