@@ -35,6 +35,7 @@ from ..logging import deferred_scalar, scalar
 from ..ops.fused_predict import sharded_pool
 from ..ops.lbfgs import minimize_lbfgs
 from ..parallel import Mesh, local_slice, round_to_mesh, sharded_best, sharding_mesh
+from ..profiling import host_read, span
 from ..space import (
     GeneralDiscreteSearchSpace,
     SearchSpace,
@@ -118,6 +119,13 @@ def _feasible(residual_fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tens
     return torch.all(residual_fn(x) >= -1e-7, dim=-1)
 
 
+def _all_finite(values: torch.Tensor) -> bool:
+    """Whether every value is finite: the recovery test, one device-to-host read."""
+    finite = bool(torch.isfinite(values).all())
+    host_read("acquisition.recovery_test")
+    return finite
+
+
 def _optimize_continuous_core(
     acq: Callable[[torch.Tensor], torch.Tensor],
     seeds: torch.Tensor,  # [N, V, D]
@@ -135,7 +143,9 @@ def _optimize_continuous_core(
     ``residual_fn`` (``[..., D] -> [..., n_res]``, feasible iff every residual is >= 0)
     makes the search constraint-aware: infeasible seeds and runs score ``-inf`` and the
     runs carry the exact penalty. Returns ``(points [V, D], values [V], improvement over
-    the best seed [V])``.
+    the best seed [V])``. The seed scores and the top-k are the span
+    ``acquisition.pool_score``, the runs and their end points' scores
+    ``acquisition.runs``.
 
     With a ``mesh`` of more than one rank (N and R multiples of its size) each rank
     scores its block of the seeds and runs its block of the starts; the global top-R
@@ -144,19 +154,21 @@ def _optimize_continuous_core(
     N, V, D = seeds.shape
     pool = seeds if mesh is None else seeds[local_slice(N, mesh)]
     gate = contextlib.nullcontext() if mesh is None else sharded_pool(pool, mesh.size)
-    with torch.no_grad(), gate:
-        seed_vals = acq(pool)  # [N (or the rank's block), V]
-        seed_vals = torch.where(torch.isfinite(seed_vals), seed_vals, -torch.inf)
-        if residual_fn is not None:
-            seed_vals = torch.where(_feasible(residual_fn, pool), seed_vals, -torch.inf)
-    if mesh is None:
-        top_vals, top_idx = torch.topk(seed_vals.T, num_runs, dim=-1)  # [V, R]
-        # starts[r] holds, for every slice v, that slice's r-th best seed
-        starts = torch.gather(seeds.transpose(0, 1), 1, top_idx[..., None].expand(V, num_runs, D))
-        starts = starts.transpose(0, 1)  # [R, V, D]
-    else:
-        top_vals, starts = sharded_best(seed_vals, pool, mesh, k=num_runs)  # [R, V], [R, V, D]
-        top_vals = top_vals.T
+    with span("acquisition.pool_score", rows=pool.shape[0]):
+        with torch.no_grad(), gate:
+            seed_vals = acq(pool)  # [N (or the rank's block), V]
+            seed_vals = torch.where(torch.isfinite(seed_vals), seed_vals, -torch.inf)
+            if residual_fn is not None:
+                seed_vals = torch.where(_feasible(residual_fn, pool), seed_vals, -torch.inf)
+        if mesh is None:
+            top_vals, top_idx = torch.topk(seed_vals.T, num_runs, dim=-1)  # [V, R]
+            # starts[r] holds, for every slice v, that slice's r-th best seed
+            starts = torch.gather(
+                seeds.transpose(0, 1), 1, top_idx[..., None].expand(V, num_runs, D))
+            starts = starts.transpose(0, 1)  # [R, V, D]
+        else:
+            top_vals, starts = sharded_best(seed_vals, pool, mesh, k=num_runs)  # [R, V], [R, V, D]
+            top_vals = top_vals.T
 
     # slices share the line search on their sum, so scale each by its best seed value
     # (equal to 1 when V == 1); no slice's argmax changes and gradients stay separate
@@ -183,16 +195,17 @@ def _optimize_continuous_core(
     R = runs.shape[0]
     run_lower = torch.where(discrete_mask, runs, lower).reshape(R, V * D)
     run_upper = torch.where(discrete_mask, runs, upper).reshape(R, V * D)
-    res = minimize_lbfgs(
-        neg_sum_acq, runs.reshape(R, V * D), lower=run_lower, upper=run_upper,
-        max_iters=max_iters,
-    )
-    opt_points = res.x.reshape(R, V, D)
-    with torch.no_grad():
-        opt_vals = acq(opt_points)  # [R, V]
-        opt_vals = torch.where(torch.isfinite(opt_vals), opt_vals, -torch.inf)
-        if residual_fn is not None:
-            opt_vals = torch.where(_feasible(residual_fn, opt_points), opt_vals, -torch.inf)
+    with span("acquisition.runs", R=R):
+        res = minimize_lbfgs(
+            neg_sum_acq, runs.reshape(R, V * D), lower=run_lower, upper=run_upper,
+            max_iters=max_iters,
+        )
+        opt_points = res.x.reshape(R, V, D)
+        with torch.no_grad():
+            opt_vals = acq(opt_points)  # [R, V]
+            opt_vals = torch.where(torch.isfinite(opt_vals), opt_vals, -torch.inf)
+            if residual_fn is not None:
+                opt_vals = torch.where(_feasible(residual_fn, opt_points), opt_vals, -torch.inf)
 
     slices = torch.arange(V, device=seeds.device)
     if mesh is None:
@@ -256,29 +269,33 @@ def generate_continuous_optimizer(
                 return draw(generator, N)[:, None, :].expand(N, V, D)
 
         residual_fn = space.constraints_residuals if space.has_constraints else None
-        points, values, improvement = _optimize_continuous_core(
-            acq, make_seeds(), lower, upper, R, max_iters, discrete_mask, residual_fn, mesh
-        )
-        scalar("spo_af_evaluations", N + R * max_iters)
-        deferred_scalar("spo_improvement_on_initial_samples", lambda: improvement.sum())
-
-        # recovery runs: retry with fresh seeds while no finite value was found
-        recoveries = 0
-        while not bool(torch.isfinite(values).all()):
-            if recoveries >= num_recovery_runs:
-                raise FailedOptimizationError(
-                    "acquisition function returned no finite values over seeds and "
-                    f"runs after {recoveries} recovery run(s)"
-                )
-            recoveries += 1
-            new_points, new_values, _ = _optimize_continuous_core(
+        with span("acquisition.optimize", N=N, R=R, V=V, D=D):
+            points, values, improvement = _optimize_continuous_core(
                 acq, make_seeds(), lower, upper, R, max_iters, discrete_mask, residual_fn, mesh
             )
-            replace = ~torch.isfinite(values) & torch.isfinite(new_values)
-            points = torch.where(replace[:, None], new_points, points)
-            values = torch.where(replace, new_values, values)
-        if recoveries:
-            scalar("spo_recovery_runs", recoveries)
+            # the JAX formula's upper limit; lbfgs.rows_active counts the evaluations
+            scalar("spo_af_evaluations", N + R * max_iters)
+            deferred_scalar("spo_improvement_on_initial_samples", lambda: improvement.sum())
+
+            # recovery runs: retry with fresh seeds while no finite value was found
+            recoveries = 0
+            while not _all_finite(values):
+                if recoveries >= num_recovery_runs:
+                    raise FailedOptimizationError(
+                        "acquisition function returned no finite values over seeds and "
+                        f"runs after {recoveries} recovery run(s)"
+                    )
+                recoveries += 1
+                with span("acquisition.recovery"):
+                    new_points, new_values, _ = _optimize_continuous_core(
+                        acq, make_seeds(), lower, upper, R, max_iters, discrete_mask,
+                        residual_fn, mesh,
+                    )
+                replace = ~torch.isfinite(values) & torch.isfinite(new_values)
+                points = torch.where(replace[:, None], new_points, points)
+                values = torch.where(replace, new_values, values)
+            if recoveries:
+                scalar("spo_recovery_runs", recoveries)
         return points
 
     return optimize_continuous

@@ -28,6 +28,7 @@ from .data import Dataset
 from .logging import flush_deferred_summaries
 from .models.interfaces import TrainableProbabilisticModel
 from .observer import OBJECTIVE
+from .profiling import next_step, span
 from .space import SearchSpace
 from .types import Tag
 from .utils.misc import LocalizedTag, generator_for
@@ -80,6 +81,7 @@ class AskTellOptimizerABC(ABC):
         self._acquisition_state = acquisition_state
         self._track_data = track_data
         self._generator = generator_for(generator, next(iter(datasets.values())).device)
+        self._step: Optional[int] = None  # the step of the last ask(), for its tell()
 
         if acquisition_rule is None:
             if datasets.keys() != {OBJECTIVE}:
@@ -211,15 +213,19 @@ class AskTellOptimizerABC(ABC):
         )
 
     def ask(self) -> torch.Tensor:
-        """Optimize the acquisition function and return the query points."""
-        points_or_stateful = self._acquisition_rule.acquire(
-            self._search_space, self._models, datasets=self._filtered_datasets,
-            generator=self._generator,
-        )
-        if callable(points_or_stateful):
-            self._acquisition_state, points_or_stateful = points_or_stateful(
-                self._acquisition_state
+        """Optimize the acquisition function and return the query points. Opens a new step
+        (:func:`~trieste_tpu_torch.profiling.next_step`), recorded as the span
+        ``ask_tell.ask``; the ``tell()`` that follows belongs to it."""
+        self._step = next_step()
+        with span("ask_tell.ask", step=self._step):
+            points_or_stateful = self._acquisition_rule.acquire(
+                self._search_space, self._models, datasets=self._filtered_datasets,
+                generator=self._generator,
             )
+            if callable(points_or_stateful):
+                self._acquisition_state, points_or_stateful = points_or_stateful(
+                    self._acquisition_state
+                )
         return points_or_stateful
 
     def tell(self, new_data: Union[Mapping[Tag, Dataset], Dataset]) -> None:
@@ -228,7 +234,15 @@ class AskTellOptimizerABC(ABC):
         With ``track_data=True`` (the default) ``new_data`` holds only the new
         observations, which are appended; with ``track_data=False`` the caller owns the
         data and passes the full updated datasets, which replace the internal ones.
+        Recorded as the span ``ask_tell.tell``, in the step of the last ``ask()`` (a new
+        step if there was none).
         """
+        if self._step is None:
+            self._step = next_step()
+        with span("ask_tell.tell", step=self._step):
+            self._tell(new_data)
+
+    def _tell(self, new_data: Union[Mapping[Tag, Dataset], Dataset]) -> None:
         if isinstance(new_data, Dataset):
             new_data = {OBJECTIVE: new_data}
         unknown = set(new_data.keys()) - set(self._datasets.keys())

@@ -26,6 +26,8 @@ from typing import Any, Callable, Iterator, Optional, Union
 import numpy as np
 import torch
 
+from .profiling import host_read, span
+
 SummaryFilter = Callable[[str], bool]
 
 
@@ -158,7 +160,10 @@ def _evaluate(value: Any) -> Any:
 
 
 def _host(value: Any) -> np.ndarray:
-    return value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+    if isinstance(value, torch.Tensor):
+        host_read("summaries.write")
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
 
 
 # -- deferred summaries ---------------------------------------------------------------
@@ -214,6 +219,7 @@ def _fetch_packed(resolved: list) -> None:
     for indices in by_device.values():
         flat = torch.cat([resolved[i][2].detach().reshape(-1).to(torch.float32) for i in indices])
         host = flat.cpu().numpy()  # the one transfer
+        host_read("summaries.fetch")
         offset = 0
         for i in indices:
             kind, name, v, step, kwargs = resolved[i]
@@ -236,6 +242,12 @@ def flush_deferred_summaries(force: bool = False) -> None:
     pending, _DEFERRED = _DEFERRED, []
     if _WRITER is None or not pending:
         return
+    with span("summaries.flush", entries=len(pending)):
+        _flush(pending)
+
+
+def _flush(pending: list) -> None:
+    """Resolve, fetch and write the entries :func:`flush_deferred_summaries` took."""
     resolved = []
     for kind, name, value, step, kwargs in pending:
         try:

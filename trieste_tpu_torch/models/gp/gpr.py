@@ -10,10 +10,14 @@ import torch
 from ...data import Dataset
 from ...ops.kernels import Stationary
 from ...parallel import current_pool_sharding, round_to_mesh
+from ...profiling import host_read, span
 from ..interfaces import ReparametrizationSampler, TrajectorySampler
 from . import posterior as P
 from .priors import GPPriors
 from .training import GPRTrainingResult, fit_gpr
+
+cache_builds = 0
+"""Posterior cache builds (``GaussianProcessRegression._build_cache`` calls)."""
 
 
 def _linvt_ok(params: P.GPRParams) -> bool:
@@ -22,7 +26,9 @@ def _linvt_ok(params: P.GPRParams) -> bool:
     is below the fused kernel's absolute variance contract, so ``LinvT`` is not built
     (saving its O(C³) cost too) and prediction takes the exact path."""
     noise = float(params.noise_variance)
+    host_read("gpr.linvt_gate")
     variance = float(params.kernel.variance)
+    host_read("gpr.linvt_gate")
     return noise / max(variance, 1e-30) >= 1e-5
 
 
@@ -59,11 +65,14 @@ class GaussianProcessRegression:
         self._cache = self._build_cache()
 
     def _build_cache(self) -> P.GPRCache:
+        global cache_builds
+        cache_builds += 1
         ds = self._dataset
-        return P.build_cache(
-            self._params, ds.query_points, ds.observations, ds.mask,
-            with_linvt=_linvt_ok(self._params),
-        )
+        with span("posterior.build_cache", n=len(ds)):
+            return P.build_cache(
+                self._params, ds.query_points, ds.observations, ds.mask,
+                with_linvt=_linvt_ok(self._params),
+            )
 
     @property
     def params(self) -> P.GPRParams:

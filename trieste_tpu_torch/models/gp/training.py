@@ -21,6 +21,7 @@ import torch
 
 from ...ops.lbfgs import minimize_lbfgs
 from ...parallel import Mesh, gather_rows, local_slice, sharded_best
+from ...profiling import span
 from .posterior import GPRParams, log_marginal_likelihood
 from .priors import GPPriors, log_prior_density, sample_log_params, squeeze_kernel
 
@@ -101,20 +102,22 @@ def minimize_restarts(
     """Lockstep L-BFGS from every row of ``starts [R, P]`` → ``(the best run's x [P], its
     loss, every run's final loss [R])``; a non-finite loss counts as ``+inf`` and ties go
     to the first run. Sharded, each rank runs its block of the rows (the last row repeated
-    up to a multiple of the mesh size: a repeat never beats its original)."""
+    up to a multiple of the mesh size: a repeat never beats its original). Recorded as
+    the span ``model.fit``."""
     mesh = pool_sharding if pool_sharding is not None and pool_sharding.size > 1 else None
-    if mesh is None:
-        results = minimize_lbfgs(loss_fn, starts, max_iters=max_iters)
+    R, P = starts.shape
+    with span("model.fit", R=R, P=P):
+        if mesh is None:
+            results = minimize_lbfgs(loss_fn, starts, max_iters=max_iters)
+            losses = torch.where(torch.isfinite(results.fun), results.fun, torch.inf)
+            best = torch.argmin(losses)
+            return results.x[best], losses[best], losses
+        padded = -(-R // mesh.size) * mesh.size
+        starts = torch.cat([starts, starts[-1:].expand(padded - R, -1)])
+        results = minimize_lbfgs(loss_fn, starts[local_slice(padded, mesh)], max_iters=max_iters)
         losses = torch.where(torch.isfinite(results.fun), results.fun, torch.inf)
-        best = torch.argmin(losses)
-        return results.x[best], losses[best], losses
-    R = starts.shape[0]
-    padded = -(-R // mesh.size) * mesh.size
-    starts = torch.cat([starts, starts[-1:].expand(padded - R, -1)])
-    results = minimize_lbfgs(loss_fn, starts[local_slice(padded, mesh)], max_iters=max_iters)
-    losses = torch.where(torch.isfinite(results.fun), results.fun, torch.inf)
-    best_loss, best_x = sharded_best(losses, results.x, mesh, largest=False)
-    return best_x[0], best_loss[0], gather_rows(losses, mesh)[:R]
+        best_loss, best_x = sharded_best(losses, results.x, mesh, largest=False)
+        return best_x[0], best_loss[0], gather_rows(losses, mesh)[:R]
 
 
 def fit_gpr_from_starts(
