@@ -139,7 +139,7 @@ def test_the_batched_lbfgs_runs_the_jax_single_start_form(n):
     target = np.arange(n, dtype=np.float64) + 3.0 * (n == 1)
     jres = jl.minimize_lbfgs(lambda x: jnp.sum((x - target) ** 2), jnp.zeros(n), max_iters=100)
     f = lambda x: torch.sum((x - torch.as_tensor(target)) ** 2)  # noqa: E731
-    tres = vmapped_minimize_lbfgs(lambda x: f(x[0])[None], torch.zeros(1, n, dtype=F64),
+    tres = vmapped_minimize_lbfgs(torch.vmap(f), torch.zeros(1, n, dtype=F64),
                                   max_iters=100)
     np.testing.assert_allclose(tres.x[0].numpy(), np.asarray(jres.x), atol=1e-6)
     np.testing.assert_allclose(tres.x[0].numpy(), target, atol=1e-5)

@@ -1,8 +1,9 @@
 """The port's spans and counters (``trieste_tpu_torch.profiling``): nothing recorded while
 tracing is off and the counters counting all the same; the span tree of one Ask/Tell step
 with its step identifier and cache builds; the L-BFGS counters on a quadratic whose every
-number is worked out by hand; the loop held bit for bit to its form before it counted; the
-spans in a Chrome trace."""
+number is worked out by hand, and on a batch against the line search one halving at a time
+(``test_torch_ops.sequential_minimize_lbfgs``); the loop held bit for bit to that search,
+its form before it counted; the spans in a Chrome trace."""
 import json
 from typing import Tuple
 
@@ -16,8 +17,9 @@ from trieste_tpu_torch.acquisition import (
     generate_continuous_optimizer,
 )
 from trieste_tpu_torch.models.gp import build_gpr
-from trieste_tpu_torch.ops import lbfgs
 from trieste_tpu_torch.ops.lbfgs import minimize_lbfgs
+
+from test_torch_ops import block_schedule, sequential_minimize_lbfgs
 
 F64 = torch.float64
 
@@ -183,9 +185,15 @@ def quadratic(x: torch.Tensor) -> torch.Tensor:
 def test_lbfgs_counters_on_a_quadratic_known_by_hand():
     """f(x) = x² from 1, 0 and 3. The row at 0 has converged before the loop. The others
     take one iteration: the first direction is −g = −2x, the full step lands on −x with the
-    same value and fails Armijo's test, the half step lands on 0 exactly, where the
-    gradient vanishes. So 1 iteration, 2 line-search turns, 4 evaluations for each moving
-    row and 1 for the other: 9 rows evaluated while going, of 3 · (1 + 1 + 2) = 12."""
+    same value and fails Armijo's test. The two rows still searching take the next
+    ⌊2 · 3 / 2⌋ = 3 halvings in one call of 6 rows; the first of them, the half step, lands
+    on 0 exactly, where the gradient vanishes. So 1 iteration and 2 line-search calls (the
+    full step and 1 block of 6 rows); 4 evaluations for each moving row, as a search one
+    halving at a time counts them, and 1 for the other: 9, of 3 (the start) + 3 (the full
+    step) + 6 (the block) + 3 (the gradient) = 15 rows given to the objective. Reads: the
+    loop's test before and after the iteration, the rows still searching after the full
+    step and after the block (its last halving is the 3rd of 24), and the evaluations' sum
+    at the end: 5."""
     x0 = torch.tensor([[1.0], [0.0], [3.0]], dtype=F64)
     before = dict(profiling.counters())
     with profiling.tracing() as records:
@@ -195,12 +203,15 @@ def test_lbfgs_counters_on_a_quadratic_known_by_hand():
     assert res.num_iters.tolist() == [1, 0, 1] and res.num_fun_evals.tolist() == [4, 1, 4]
     assert grown["lbfgs.iterations"] == 1 == int(res.num_iters.max())
     assert grown["lbfgs.line_search_turns"] == 2
+    assert grown["lbfgs.line_search_blocks"] == 1
+    assert grown["lbfgs.block_rows"] == 6
     assert grown["lbfgs.rows_active"] == 9 == int(res.num_fun_evals.sum())
-    assert grown["lbfgs.rows_evaluated"] == 12
-    assert grown["host_reads"] == 2 * 1 + 2 + 1
+    assert grown["lbfgs.rows_evaluated"] == 15
+    assert grown["host_reads"] == 5
     (call,) = [r for r in records if r.name == "lbfgs.minimize"]
     assert call.attrs == {"R": 3, "n": 1, "iterations": 1, "line_search_turns": 2,
-                          "rows_evaluated": 12, "rows_active": 9}
+                          "line_search_blocks": 1, "block_rows": 6,
+                          "rows_evaluated": 15, "rows_active": 9}
     assert call.host_reads == 5
     assert [r.name for r in records] == [
         "lbfgs.minimize", "lbfgs.direction", "lbfgs.line_search", "lbfgs.gradient"]
@@ -209,123 +220,44 @@ def test_lbfgs_counters_on_a_quadratic_known_by_hand():
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
 def test_lbfgs_counters_match_the_results(dtype):
     """On a batch of runs that end at different iterations: the iterations the longest run
-    took, the evaluations the runs counted, two loop tests per iteration and one per
-    line-search turn plus the first."""
+    took and the evaluations the runs counted; per iteration a full step, a gradient and
+    two reads (the loop's test and the rows still searching after the full step); the
+    blocks, their rows and the reads after them as the rule ``K = min(halvings left,
+    ⌊2R / S⌋)`` takes them over the searches one halving at a time; 6 rows for the start,
+    each full step and each gradient; and the read at the start and the one at the end."""
     A, x0, lower, upper = problem(dtype)
+    searches = []
+    sequential_minimize_lbfgs(lambda x: bowl(A, x), x0, lower, upper, max_iters=40,
+                              searches=searches)
+    blocks, rows, reads = block_schedule(searches, 6)
     before = dict(profiling.counters())
     with profiling.tracing() as records:
         res = minimize_lbfgs(lambda x: bowl(A, x), x0, lower, upper, max_iters=40)
     grown = delta(before, profiling.counters())
     (call,) = [r for r in records if r.name == "lbfgs.minimize"]
-    assert grown["lbfgs.iterations"] == int(res.num_iters.max()) == call.attrs["iterations"]
+    iters = grown["lbfgs.iterations"]
+    assert iters == int(res.num_iters.max()) == call.attrs["iterations"] == len(searches)
     assert grown["lbfgs.rows_active"] == int(res.num_fun_evals.sum()) == call.attrs["rows_active"]
-    turns = grown["lbfgs.line_search_turns"]
-    assert turns == call.attrs["line_search_turns"] > 0
-    assert grown["host_reads"] == 2 * grown["lbfgs.iterations"] + turns + 1
-    assert grown["lbfgs.rows_evaluated"] == 6 * (1 + grown["lbfgs.iterations"] + turns)
+    assert grown["lbfgs.line_search_blocks"] == blocks == call.attrs["line_search_blocks"] > 0
+    assert grown["lbfgs.block_rows"] == rows == call.attrs["block_rows"]
+    assert grown["lbfgs.line_search_turns"] == iters + blocks == call.attrs["line_search_turns"]
+    assert grown["host_reads"] == 2 * iters + reads + 2 == call.host_reads
+    assert grown["lbfgs.rows_evaluated"] == 6 * (1 + 2 * iters) + rows
     assert grown["lbfgs.rows_active"] < grown["lbfgs.rows_evaluated"]  # the runs end apart
 
 
 def problem(dtype) -> Tuple[torch.Tensor, ...]:
     g = torch.Generator().manual_seed(3)
-    A = torch.randn(6, 3, 3, generator=g, dtype=dtype)
-    A = A @ A.transpose(-1, -2) + 0.1 * torch.eye(3, dtype=dtype)
-    x0 = torch.randn(6, 3, generator=g, dtype=dtype)
+    A = torch.randn(3, 3, generator=g, dtype=dtype)
+    A = A @ A.T + 0.1 * torch.eye(3, dtype=dtype)
+    x0 = 1.5 * torch.randn(6, 3, generator=g, dtype=dtype)
     return A, x0, torch.full((3,), -1.0, dtype=dtype), torch.full((3,), 2.0, dtype=dtype)
 
 
 def bowl(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    value = torch.einsum("ri,rij,rj->r", x, A, x) + torch.sin(3.0 * x).sum(-1)
-    return torch.where(x[:, 0] > 1.9, torch.nan, value)  # a non-finite region too
-
-
-def _minimize_lbfgs_before_counting(fn, x0, lower=None, upper=None, *, memory=10, max_iters=100):
-    """The loop as it was before it counted: one ``bool`` read per test."""
-    R, n = x0.shape
-    dtype, device = x0.dtype, x0.device
-    lo = torch.full((n,), -torch.inf, dtype=dtype, device=device) if lower is None else lower
-    hi = torch.full((n,), torch.inf, dtype=dtype, device=device) if upper is None else upper
-
-    def project(x):
-        return torch.clamp(x, lo, hi)
-
-    def proj_grad_norm(x, g):
-        return torch.amax(torch.abs(x - project(x - g)), dim=-1)
-
-    def safe_f(x):
-        with torch.no_grad():
-            f = fn(x)
-        return torch.where(torch.isfinite(f), f, torch.inf)
-
-    def safe_vg(x):
-        with torch.enable_grad():
-            xg = x.detach().requires_grad_(True)
-            f = fn(xg)
-            (g,) = torch.autograd.grad(f.sum(), xg)
-        f = torch.where(torch.isfinite(f), f.detach(), torch.inf)
-        g = torch.where(torch.isfinite(g), g, 0.0)
-        return f, g
-
-    def line_search(x, f, g, d, active):
-        a = torch.ones(R, dtype=dtype, device=device)
-        ls_it = torch.zeros(R, dtype=torch.long, device=device)
-        x_best, f_best = x, f
-        ok = torch.zeros(R, dtype=torch.bool, device=device)
-        searching = active
-        while bool(searching.any()):
-            xn = project(x + a[:, None] * d)
-            fn_val = safe_f(xn)
-            decrease = fn_val <= f + lbfgs.ARMIJO_C1 * torch.sum(g * (xn - x), dim=-1)
-            moved = torch.amax(torch.abs(xn - x), dim=-1) > 0
-            good = searching & decrease & moved
-            x_best = torch.where(good[:, None], xn, x_best)
-            f_best = torch.where(good, fn_val, f_best)
-            ok = torch.where(searching, good, ok)
-            a = torch.where(searching, a * 0.5, a)
-            ls_it = ls_it + searching.long()
-            searching = searching & ~ok & (ls_it < lbfgs.MAX_LINE_SEARCH)
-        return x_best, f_best, ls_it, ok
-
-    x = project(x0)
-    f, g = safe_vg(x)
-    s_hist = torch.zeros((R, memory, n), dtype=dtype, device=device)
-    y_hist = torch.zeros((R, memory, n), dtype=dtype, device=device)
-    rho = torch.zeros((R, memory), dtype=dtype, device=device)
-    hk = torch.zeros(R, dtype=torch.long, device=device)
-    gamma = torch.ones(R, dtype=dtype, device=device)
-    it = torch.zeros(R, dtype=torch.long, device=device)
-    evals = torch.ones(R, dtype=torch.long, device=device)
-    converged = proj_grad_norm(x, g) <= lbfgs.GTOL
-    done = converged.clone()
-    while not bool(done.all()):
-        active = ~done
-        d = -lbfgs._two_loop(g, s_hist, y_hist, rho, hk, gamma)
-        d = torch.where((torch.sum(d * g, dim=-1) < 0)[:, None], d, -g)
-        x_new, f_new, ls_evals, ls_ok = line_search(x, f, g, d, active)
-        _, g_new = safe_vg(x_new)
-        sk = x_new - x
-        yk = g_new - g
-        sy = torch.sum(sk * yk, dim=-1)
-        accept = active & ls_ok & (sy > 1e-10)
-        slot = torch.nn.functional.one_hot(torch.remainder(hk, memory), memory).bool()
-        write = slot & accept[:, None]
-        s_hist = torch.where(write[..., None], sk[:, None, :], s_hist)
-        y_hist = torch.where(write[..., None], yk[:, None, :], y_hist)
-        rho = torch.where(write, (1.0 / torch.clamp_min(sy, 1e-30))[:, None], rho)
-        hk = hk + accept.long()
-        gamma = torch.where(accept, sy / torch.clamp_min(torch.sum(yk * yk, dim=-1), 1e-30), gamma)
-        step_ = active & ls_ok
-        f_old = f
-        x = torch.where(step_[:, None], x_new, x)
-        f = torch.where(step_, f_new, f)
-        g = torch.where(step_[:, None], g_new, g)
-        f_rel = torch.abs(f_old - f) / torch.clamp_min(torch.maximum(torch.abs(f), torch.abs(f_old)), 1.0)
-        conv_now = (proj_grad_norm(x, g) <= lbfgs.GTOL) | (ls_ok & (f_rel <= lbfgs.FTOL))
-        it = it + active.long()
-        converged = torch.where(active, conv_now, converged)
-        done = done | (active & (conv_now | ~ls_ok | (it >= max_iters)))
-        evals = evals + active.long() * (ls_evals + 1)
-    return lbfgs.LBFGSResults(x, f, converged, it, evals)
+    """One function of each row: a quadratic form with ripples, and a non-finite region."""
+    value = (x[:, :, None] * A * x[:, None, :]).sum((-2, -1)) + torch.sin(3.0 * x).sum(-1)
+    return torch.where(x[:, 0] > 1.9, torch.nan, value)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
@@ -335,7 +267,7 @@ def test_lbfgs_is_bit_for_bit_the_loop_before_counting(dtype, bounded):
     bounds = (lower, upper) if bounded else (None, None)
     with profiling.tracing():
         new = minimize_lbfgs(lambda x: bowl(A, x), x0, *bounds, max_iters=40, memory=4)
-    old = _minimize_lbfgs_before_counting(lambda x: bowl(A, x), x0, *bounds, max_iters=40, memory=4)
+    old = sequential_minimize_lbfgs(lambda x: bowl(A, x), x0, *bounds, max_iters=40, memory=4)
     for a, b in zip(new, old):
         assert a.dtype == b.dtype and torch.equal(a, b)
 

@@ -5,7 +5,8 @@ The likelihoods' log densities, expectations and predictions at rtol 1e-12 (Gaus
 against the closed forms where both exist at 1e-6, the quadrature's own error); the ELBO,
 one natural-gradient step (taken, and rejected where it leaves the positive-definite cone)
 and the predictions at rtol 1e-9; ``fit_vgp`` from the JAX start (parameters and loss at
-rtol 1e-6: ten L-BFGS runs in a row); ``update`` then ``optimize`` at capacities 8, 16 and
+rtol 1e-6: ten L-BFGS runs in a row), and its own values with a loss of each row;
+``update`` then ``optimize`` at capacities 8, 16 and
 32; the builder; BALD's
 values and gradients at rtol 1e-9; the encoders; and the slice: two BALD EGO steps on a
 circle classification problem through ``BayesianOptimizer.optimize`` in both packages,
@@ -231,6 +232,35 @@ def test_fit_matches_jax_from_its_start():
     draws = tm.sample(torch.Generator().manual_seed(0), _t(x), 4000)
     assert draws.shape == (4000, 9, 1)
     _close(draws.mean(0), mean, rtol=0, atol=0.1)
+
+
+def test_fit_gives_its_values_with_a_loss_of_each_row(monkeypatch):
+    """The hyperparameters' loss is one function of each row, for any number of rows, as
+    the L-BFGS line search's blocks need; the fit from ``build_vgp_classifier``'s start
+    keeps the values it had when the loss read its first row alone (float64 on the CPU)."""
+    (_, _), (tm, tds) = _classifiers()
+    minimize = tvgp.minimize_lbfgs
+
+    def checked(fn, x0, **kwargs):
+        rows = torch.cat([x0, x0 + 0.1, x0 - 0.2])
+        torch.testing.assert_close(fn(rows), torch.cat([fn(r[None]) for r in rows]),
+                                   rtol=0, atol=0)
+        return minimize(fn, x0, **kwargs)
+
+    monkeypatch.setattr(tvgp, "minimize_lbfgs", checked)
+    got = tm.optimize(tds)
+    assert int(got.rejected_steps) == 0 == int(got.rejected_hyper_steps)
+    close = dict(rtol=1e-12, atol=1e-15)
+    _close(got.loss, 4.696636604546559, **close)
+    _close(got.params.kernel.variance, 0.4079973312636676, **close)
+    _close(got.params.kernel.lengthscales, [0.19882676415217346, 0.24456913826458854], **close)
+    _close(got.params.q_mu[:, 0], [0.5075790216434963, -0.43130419948901244, 0.38778264455106876,
+                                   -0.4219320470857129, 0.4337141577494531, -0.6480103485053887,
+                                   -0.2671287828219395, 0.0], **close)
+    _close(torch.diagonal(got.params.q_sqrt),
+           [0.9003298696866358, 0.9026310195917714, 0.9091391185369633, 0.9021276731727007,
+            0.902349008864748, 0.873429035229417, 0.9507625643136282, 0.9999997305001114],
+           **close)
 
 
 def test_fit_rejects_a_hyperparameter_run_that_ends_at_a_non_finite_loss(monkeypatch):

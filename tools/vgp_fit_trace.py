@@ -56,9 +56,12 @@ def main() -> int:
                 taken.append(bool(ok))
             elbo = float(V.vgp_elbo(p, X, Y, mask))
 
-            def loss_fn(v, p=p):
-                pv = V._hyper_unpack(v[0], p, False)
-                return (-V.vgp_elbo(pv, X, Y, mask) - log_prior_density(pv.kernel, priors))[None]
+            def loss_fn(v, p=p):  # [k, n] -> [k], row by row
+                def loss(row):
+                    pv = V._hyper_unpack(row, p, False)
+                    return -V.vgp_elbo(pv, X, Y, mask) - log_prior_density(pv.kernel, priors)
+
+                return torch.stack([loss(row) for row in v])
 
             res = minimize_lbfgs(loss_fn, u[None], max_iters=25)
             finite = bool(torch.isfinite(res.fun[0]))

@@ -229,9 +229,12 @@ def fit_vgp(
     for _ in range(num_alternations):
         p = natural_steps(p)
 
-        def loss_fn(u: torch.Tensor, p=p) -> torch.Tensor:  # [1, n] -> [1]
-            p_u = _hyper_unpack(u[0], p, train_lik_var)
-            return (-vgp_elbo(p_u, X, Y, mask) - log_prior_density(p_u.kernel, priors))[None]
+        def loss_fn(u: torch.Tensor, p=p) -> torch.Tensor:  # [k, n] -> [k], row by row
+            def loss(row: torch.Tensor) -> torch.Tensor:
+                p_u = _hyper_unpack(row, p, train_lik_var)
+                return -vgp_elbo(p_u, X, Y, mask) - log_prior_density(p_u.kernel, priors)
+
+            return torch.stack([loss(row) for row in u])
 
         res = minimize_lbfgs(loss_fn, u[None], max_iters=max_hyper_iters)
         finite = torch.isfinite(res.fun[0])

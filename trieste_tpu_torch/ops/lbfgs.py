@@ -1,21 +1,39 @@
 """Box-constrained L-BFGS over a batch of runs in lockstep (counterpart of
 :mod:`trieste_tpu.ops.lbfgs`, which ``vmap``s one run under ``lax.while_loop``).
 
-``x: [R, n]`` holds R independent runs. The objective maps ``[R, n] -> [R]`` with row r
-of the value depending on row r of the input only, so ``autograd.grad(f.sum(), x)`` gives
-every run its own gradient and one call of the objective serves all runs. Each run keeps
-its own history, step sizes, line-search state and done flag; a finished run stops
-changing while the others go on, which is exactly the per-run semantics of the vmapped
-JAX loop. The loops are Python loops with one device-to-host read per test: each
-iteration's "how many runs are still going?" and each line-search turn's "how many runs
-are still searching?". The counts cost no further read and feed the module's counters
-(:func:`trieste_tpu_torch.profiling.counters`) and the spans of a call
+``x: [R, n]`` holds R independent runs. The objective is one function of a row, applied to
+every row of its input: it maps ``[k, n] -> [k]`` for any ``k``, row i of the value
+depending on row i of the input only. So ``autograd.grad(f.sum(), x)`` gives every run its
+own gradient, one call of the objective serves all runs, and the line search may stack the
+candidates of several runs into one call. A call that returns another shape raises
+``ValueError``. Each run keeps its own history, step sizes, line-search state and done
+flag; a finished run stops changing while the others go on, which is exactly the per-run
+semantics of the vmapped JAX loop.
+
+The loops are Python loops over device-to-host reads: each iteration's "how many runs are
+still going?", and in each line search the rows still searching after the full step and
+after each block of halvings that does not reach the last one. The counts feed the module's
+counters (:func:`trieste_tpu_torch.profiling.counters`) and the spans of a call
 (``lbfgs.minimize``) and of each iteration's phases (``lbfgs.direction``,
-``lbfgs.line_search``, ``lbfgs.gradient``).
+``lbfgs.line_search``, ``lbfgs.gradient``); the evaluations the runs counted cost one read
+at the end of a call.
 
 The algorithm is the JAX package's: the two-loop recursion over a circular history,
 backtracking Armijo search along the projected path, and convergence on the projected
 gradient ``x − clip(x − g)`` (scipy L-BFGS-B's criterion) or on the relative change of f.
+The search's halvings depend only on x, d and their index, so the runs still searching
+after the full step evaluate the next K step sizes ``2⁻ᵏ`` in one call of ``S·K`` rows,
+``K = ⌊2R / S⌋`` or the halvings left, and each takes its first step that passes Armijo's
+test: the accepted point, value and evaluation count of the search one halving at a time.
+A call thus holds at most 2R rows, twice the rows of the gradient phase, which evaluates
+the same objective with autograd's saved tensors. An acquisition's runs hold ``V`` points
+each, so a block can hold ``2R·V`` rows; from ``R·V ≥ 1024`` it can cross the fused
+prediction kernel's 2048-row gate, and those rows are then scored within the kernel's
+precision contract.
+
+Under a mesh each rank runs its own block of the runs, and ranks make different numbers of
+calls and reads; this holds only while no objective makes a collective call, and none does
+(``parallel/collectives.py`` calls them outside every objective).
 """
 from __future__ import annotations
 
@@ -33,12 +51,18 @@ ARMIJO_C1 = 1e-4
 iterations = 0
 """Lockstep iterations, over all calls: turns of the host loop."""
 line_search_turns = 0
-"""Turns of the line-search loop, over all calls."""
+"""Objective calls of the line search, over all calls: the full step and each block of
+halvings, each followed by at most one read."""
+line_search_blocks = 0
+"""The line search's objective calls past the full step (blocks of halvings)."""
+block_rows = 0
+"""Rows given to the objective in :data:`line_search_blocks`."""
 rows_evaluated = 0
-"""Rows given to the objective, over all calls: R per evaluation."""
+"""Rows given to the objective, over all calls: R per gradient and full step, and the rows
+of each block."""
 rows_active = 0
-"""The rows among :data:`rows_evaluated` whose run was still going (searching, in a line
-search): the evaluations that count in ``LBFGSResults.num_fun_evals``."""
+"""The evaluations that count in ``LBFGSResults.num_fun_evals``: those a search one
+halving at a time would make for the runs still going."""
 
 
 class LBFGSResults(NamedTuple):
@@ -86,20 +110,21 @@ def minimize_lbfgs(
     memory: int = 10,
     max_iters: int = 100,
 ) -> LBFGSResults:
-    """Minimize every row of ``x0 [R, n]`` under ``fn: [R, n] -> [R]``, within optional
-    bounds ``[n]`` or ``[R, n]``.
+    """Minimize every row of ``x0 [R, n]`` under ``fn: [k, n] -> [k]``, one function of
+    each row for any number of rows ``k``, within optional bounds ``[n]`` or ``[R, n]``.
 
     This batched form is the counterpart of the JAX package's ``vmapped_minimize_lbfgs``
     and is exported under that name too. The JAX ``minimize_lbfgs`` takes one start
-    ``x0 [n]`` and a scalar objective; here that is the batch of one run,
-    ``minimize_lbfgs(lambda x: f(x[0])[None], x0[None])``."""
-    global iterations, line_search_turns, rows_evaluated, rows_active
+    ``x0 [n]`` and a scalar objective ``f``; here that is the batch of one run,
+    ``minimize_lbfgs(torch.vmap(f), x0[None])``."""
+    global iterations, line_search_turns, line_search_blocks, block_rows
+    global rows_evaluated, rows_active
     R, n = x0.shape
     dtype, device = x0.dtype, x0.device
     lo = torch.full((n,), -torch.inf, dtype=dtype, device=device) if lower is None else lower
     hi = torch.full((n,), torch.inf, dtype=dtype, device=device) if upper is None else upper
-    turns = 0  # line-search turns of this call
-    active_rows = R  # evaluated rows whose run was going: the first evaluation's are all
+    turns = blocks = rows_in_blocks = 0  # this call's line-search calls, blocks and their rows
+    evaluated = R  # rows given to the objective: the first evaluation's are all
 
     def project(x: torch.Tensor) -> torch.Tensor:
         return torch.clamp(x, lo, hi)
@@ -107,15 +132,22 @@ def minimize_lbfgs(
     def proj_grad_norm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return torch.amax(torch.abs(x - project(x - g)), dim=-1)
 
+    def checked(f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        if f.shape != x.shape[:1]:
+            raise ValueError(
+                f"the objective must map [k, n] to [k]; it gave {tuple(f.shape)} for "
+                f"{tuple(x.shape)}")
+        return f
+
     def safe_f(x: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            f = fn(x)
+            f = checked(fn(x), x)
         return torch.where(torch.isfinite(f), f, torch.inf)
 
     def safe_vg(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         with torch.enable_grad():
             xg = x.detach().requires_grad_(True)
-            f = fn(xg)
+            f = checked(fn(xg), xg)
             if f.requires_grad:
                 (g,) = torch.autograd.grad(f.sum(), xg)
             else:  # an objective that does not depend on x
@@ -124,31 +156,53 @@ def minimize_lbfgs(
         g = torch.where(torch.isfinite(g), g, 0.0)
         return f, g
 
+    # the step sizes 1, 1/2, ..., 2^-(MAX_LINE_SEARCH-1), each exact
+    steps = torch.full((MAX_LINE_SEARCH,), 0.5, dtype=dtype, device=device).cumprod(0) * 2.0
+
+    def armijo(xn, fn_val, x, f, g):
+        """Armijo's sufficient decrease, and a move off ``x``, over the last axis."""
+        decrease = fn_val <= f + ARMIJO_C1 * torch.sum(g * (xn - x), dim=-1)
+        return decrease & (torch.amax(torch.abs(xn - x), dim=-1) > 0)
+
     def line_search(x, f, g, d, active):
-        """Backtracking Armijo over the projected path ``project(x + a*d)``."""
-        nonlocal turns, active_rows
-        a = torch.ones(R, dtype=dtype, device=device)
-        ls_it = torch.zeros(R, dtype=torch.long, device=device)
-        x_best, f_best = x, f
-        ok = torch.zeros(R, dtype=torch.bool, device=device)
-        searching = active
-        count = int(searching.sum())  # runs still searching
+        """Backtracking Armijo over the projected path ``project(x + a*d)``: the full step
+        for every row, then blocks of halvings for the rows still searching."""
+        nonlocal turns, blocks, rows_in_blocks, evaluated
+        turns += 1
+        evaluated += R
+        xn = project(x + d)
+        fn_val = safe_f(xn)
+        ok = active & armijo(xn, fn_val, x, f, g)
+        x_best = torch.where(ok[:, None], xn, x)
+        f_best = torch.where(ok, fn_val, f)
+        ls_it = active.long()
+        rows = (active & ~ok).nonzero()[:, 0]  # the runs still searching, and how many
         host_read("lbfgs.line_search")
-        while count:
+        k0 = 1  # the next halving
+        while rows.shape[0]:
+            S = rows.shape[0]
+            K = min(MAX_LINE_SEARCH - k0, max(1, 2 * R // S))
             turns += 1
-            active_rows += count
-            xn = project(x + a[:, None] * d)
-            fn_val = safe_f(xn)
-            decrease = fn_val <= f + ARMIJO_C1 * torch.sum(g * (xn - x), dim=-1)
-            moved = torch.amax(torch.abs(xn - x), dim=-1) > 0
-            good = searching & decrease & moved
-            x_best = torch.where(good[:, None], xn, x_best)
-            f_best = torch.where(good, fn_val, f_best)
-            ok = torch.where(searching, good, ok)
-            a = torch.where(searching, a * 0.5, a)
-            ls_it = ls_it + searching.long()
-            searching = searching & ~ok & (ls_it < MAX_LINE_SEARCH)
-            count = int(searching.sum())
+            blocks += 1
+            rows_in_blocks += S * K
+            evaluated += S * K
+            xs, fs, gs, ds = x[rows], f[rows], g[rows], d[rows]
+            bounds = [b if b.dim() == 1 else b.expand(R, n)[rows][:, None] for b in (lo, hi)]
+            xn = torch.clamp(xs[:, None] + steps[k0:k0 + K, None] * ds[:, None], *bounds)
+            fn_val = safe_f(xn.reshape(S * K, n)).reshape(S, K)  # [S, K]
+            good = armijo(xn, fn_val, xs[:, None], fs[:, None], gs[:, None])
+            first = torch.argmax(good.int(), dim=1)  # the first accepted halving, if any
+            found = good.any(dim=1)
+            x_best.index_copy_(0, rows, torch.where(
+                found[:, None], xn.gather(1, first.view(S, 1, 1).expand(S, 1, n))[:, 0], xs))
+            f_best.index_copy_(0, rows, torch.where(
+                found, fn_val.gather(1, first[:, None])[:, 0], fs))
+            ok.index_copy_(0, rows, found)
+            ls_it.index_copy_(0, rows, torch.where(found, first + (k0 + 1), k0 + K))
+            k0 += K
+            if k0 == MAX_LINE_SEARCH:
+                break
+            rows = rows[~found]
             host_read("lbfgs.line_search")
         return x_best, f_best, ls_it, ok
 
@@ -169,7 +223,7 @@ def minimize_lbfgs(
         iters = 0
         while live:
             iters += 1
-            active_rows += live  # this iteration's gradient evaluation
+            evaluated += R  # this iteration's gradient evaluation
             active = ~done
             with span("lbfgs.direction"):
                 d = -_two_loop(g, s_hist, y_hist, rho, hk, gamma)
@@ -205,12 +259,16 @@ def minimize_lbfgs(
                 evals = evals + active.long() * (ls_evals + 1)
                 live = R - int(done.sum())
                 host_read("lbfgs.loop")
-        evaluated = R * (1 + iters + turns)
+        active_rows = int(evals.sum())
+        host_read("lbfgs.minimize")
         if record is not None:
             record.attrs.update(iterations=iters, line_search_turns=turns,
+                                line_search_blocks=blocks, block_rows=rows_in_blocks,
                                 rows_evaluated=evaluated, rows_active=active_rows)
     iterations += iters
     line_search_turns += turns
+    line_search_blocks += blocks
+    block_rows += rows_in_blocks
     rows_evaluated += evaluated
     rows_active += active_rows
     return LBFGSResults(x, f, converged, it, evals)

@@ -186,6 +186,8 @@ def counters() -> Mapping[str, int]:
         "host_reads": host_reads,
         "lbfgs.iterations": lbfgs.iterations,
         "lbfgs.line_search_turns": lbfgs.line_search_turns,
+        "lbfgs.line_search_blocks": lbfgs.line_search_blocks,
+        "lbfgs.block_rows": lbfgs.block_rows,
         "lbfgs.rows_evaluated": lbfgs.rows_evaluated,
         "lbfgs.rows_active": lbfgs.rows_active,
         "posterior.cache_builds": gpr.cache_builds,
