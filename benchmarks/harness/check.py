@@ -2,30 +2,32 @@
 ``benchmarks/reference/`` once the window has closed and the program's state is freed.
 
 For every step of the run, the reference rebuilds that step's data from the episode's
-design and told points (the benchmark made both), takes the program's hyperparameters as
-the thing to judge, and works out again in float64 everything the program derived from
-them: the fixed noise (the configuration's, or the default from the initial observations)
-and the priors from the episode's initial observations, the
-Cholesky factor, the posterior, the incumbent and the acquisition. Three numbers, each the
-worst over the steps whose records the run kept (``loop.KEPT_RECORDS``: a sample drawn from
-the seed, and the last step) or over a sample of its fits:
+design and told points (the benchmark made both), takes what the family judges (the
+program's hyperparameters) as given, and works out again in float64 everything the
+program derived from them, by the family's reference (``reference/<builder>.py``): what
+an episode fixes (the noise and the priors from its initial observations), the
+posterior, and from it, by the rule's reference (``reference/<rule>.py``), the
+acquisition; a rule whose function rests on random draws gets the raw draws of the ask.
+Three numbers, each the worst over the steps whose records the run kept
+(``loop.KEPT_RECORDS``: a sample drawn from the seed, and the last step) or over a sample
+of its fits:
 
 - ``pool_err``: the seed pool's scores as the timed path computed them (through the fused
   kernel where the program takes it), against the reference's scores of the same points,
-  as the largest absolute gap over the pool in units of the fitted signal's standard
-  deviation ``sqrt(s)``;
+  as the largest absolute gap over the pool and every slice, in units of the posterior's
+  ``scale`` (the fitted signal's standard deviation);
 - ``point_err``: the same for the scores of the acquisition optimizer's last runs, among
-  them the asked point;
-- ``fit_gap``: how far the MAP objective (negative log marginal likelihood and log
-  priors, float64) at the program's fitted hyperparameters lies above the optimum that a
-  float64 fit reaches from them, per training point; for a sample of :data:`FIT_SAMPLE`
-  of the run's fits (the initial fits and each ``tell()``) drawn from the seed, the last
-  ``tell()`` always among them.
+  them the asked points;
+- ``fit_gap``: the family's own number for its fit (for the exact GP, how far the MAP
+  objective at the program's hyperparameters lies above the optimum a float64 fit reaches
+  from them, per training point), for a sample of :data:`FIT_SAMPLE` of the run's fits
+  (the initial fits and each ``tell()``) drawn from the seed, the last ``tell()`` always
+  among them.
 
-A step fails outright (``failed``) when its asked points are not finite, lie outside the
-box, are not among the points the optimizer scored, or are not the best of them by the
-program's own scores: the answer is then not the optimizer's, and no number can say how
-far off it is.
+A step fails outright (``failed``) when an asked point is not finite, lies outside the
+box, is not among the points the optimizer scored in its slice, or is not the best of
+them by the program's own scores: the answer is then not the optimizer's, and no number
+can say how far off it is.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ import torch
 
 import numpy as np
 
-from benchmarks.reference import gp as R
+from benchmarks.reference.precision import FP64, TF32, Precision
 
 from .loop import subseed
 
@@ -66,13 +68,6 @@ class Verdict:
         return {k: {"value": self.numbers[k], "limit": self.limits[k]} for k in NUMBERS}
 
 
-def _hyper(theta, noise: float, jitter: float) -> R.Hyper:
-    """The program's hyperparameters as the reference's, in float64."""
-    k = theta.kernel
-    return R.Hyper(k.variance.double(), k.lengthscales.double().reshape(-1),
-                   theta.mean_constant.double(), noise, jitter)
-
-
 def _gap(program: torch.Tensor, reference: torch.Tensor, scale: float) -> float:
     """Largest ``|program − reference|`` over finite references, in units of ``scale``; a
     non-finite program value where the reference is finite counts as infinite."""
@@ -88,55 +83,48 @@ class Judge:
 
     def __init__(self, run):
         cell = run.cell
-        c, m = cell.config, cell.config["model"]
+        self.config = cell.config
+        self.family = cell.family_reference()
         self.reference = cell.reference_module()
         self.traffic = cell.traffic
-        self.lower = torch.tensor(c["lower"], dtype=torch.float64, device=run.device)
-        self.upper = torch.tensor(c["upper"], dtype=torch.float64, device=run.device)
-        self.m = m
-        self.priors_cache: Dict[int, Tuple[float, R.Priors]] = {}
+        self.lower = torch.tensor(self.config["lower"], dtype=torch.float64, device=run.device)
+        self.upper = torch.tensor(self.config["upper"], dtype=torch.float64, device=run.device)
+        self.contexts: Dict[int, object] = {}
 
-    def noise_and_priors(self, episode) -> Tuple[float, R.Priors]:
+    def context(self, episode):
+        """What the family fixes for an episode from its initial observations."""
         key = id(episode)
-        if key not in self.priors_cache:
+        if key not in self.contexts:
             Y0 = episode.Y[0][: episode.num_initial]
-            noise, priors = R.default_noise_and_priors(
-                Y0, self.upper - self.lower, self.lower.shape[0], self.m["lengthscale_factor"],
-                self.m["signal_noise_ratio"], self.m["prior_scale"], self.m["squeeze_log_range"],
-                self.m.get("likelihood_variance"))
-            priors = R.Priors(priors.var_loc, priors.ls_loc.to(self.lower.device),
-                              priors.scale, priors.squeeze)
-            self.priors_cache[key] = (noise, priors)
-        return self.priors_cache[key]
+            self.contexts[key] = self.family.episode(self.config, Y0, self.lower, self.upper)
+        return self.contexts[key]
 
-    def fit_gap(self, fit, prec: Optional[R.Precision] = None) -> float:
-        """``fit_gap`` of a fit ``(episode, n, hyperparameters)``; with ``prec``, of where
-        a fit in that precision ends from those hyperparameters instead."""
+    def fit_gap(self, fit, prec: Optional[Precision] = None) -> float:
+        """``fit_gap`` of a fit ``(episode, n, theta)``; with ``prec``, of where a fit in
+        that precision ends from ``theta`` instead."""
         episode, n, theta = fit
-        noise, priors = self.noise_and_priors(episode)
+        context = self.context(episode)
         X, Y = (t.double() for t in episode.data(n))
-        h = _hyper(theta, noise, self.m["cholesky_jitter"])
-        u = R.pack(h)
-        if prec is not None:
-            u = R.fit_local(u, X, Y, h, priors, prec)
-            if not bool(torch.isfinite(u).all()):
-                return math.inf
-        return R.fit_gap(u, X, Y, h, priors)
+        return self.family.fit_gap(self.config, context, X, Y, theta, prec)
 
-    def posterior(self, episode, n: int, theta, prec: R.Precision) -> R.Posterior:
-        noise, _ = self.noise_and_priors(episode)
+    def posterior(self, episode, n: int, theta, prec: Precision):
+        context = self.context(episode)
         X, Y = episode.data(n)
-        return R.Posterior(X.double(), Y.double(),
-                           _hyper(theta, noise, self.m["cholesky_jitter"]), prec)
+        return self.family.posterior(self.config, context, X.double(), Y.double(), theta, prec)
 
-    def scores(self, post: R.Posterior, x: torch.Tensor) -> torch.Tensor:
-        return self.reference.score(post, x, self.traffic)
+    def scores(self, post, x: torch.Tensor, draws) -> torch.Tensor:
+        return self.reference.score(post, x, self.traffic, draws)
+
+
+def _draws(record):
+    return None if record.draws is None else record.draws()
 
 
 def asked_failure(step, lower: torch.Tensor, upper: torch.Tensor) -> Optional[str]:
     """Why a step's asked points are not the optimizer's answer, or ``None``. Where the
-    step's record was kept, the points must be among those the optimizer scored and the
-    best of them by the program's own scores."""
+    step's record was kept, the asked point of each slice ``v`` (the ``v``-th point; a
+    function of the whole batch has one slice) must be among the points the optimizer
+    scored in slice ``v`` and the best of them by the program's own scores."""
     x = step.asked
     if step.asks != 1:
         return f"{step.asks} optimizer calls in one ask"
@@ -149,19 +137,27 @@ def asked_failure(step, lower: torch.Tensor, upper: torch.Tensor) -> Optional[st
         return None
     if step.record.pool is None:
         return "no seed pool was scored"
-    flat = x.reshape(-1)
-    best, found = -math.inf, None
+    V = step.record.pool[0].shape[1]
+    asked = x.reshape(V, -1)
+    slices = torch.arange(V, device=x.device)
+    best = torch.full((V,), -math.inf, dtype=torch.float64, device=x.device)
+    found = best.clone()
+    hit = torch.zeros(V, dtype=torch.bool, device=x.device)
     for rows, values in filter(None, (step.record.pool, step.record.final)):
-        rows = rows.reshape(rows.shape[0], -1)
-        v = torch.nan_to_num(values.reshape(-1).double(), nan=-math.inf)
-        best = max(best, float(v.max()))
-        hit = (rows == flat).all(-1).nonzero()
-        if hit.numel():
-            found = max(found if found is not None else -math.inf, float(v[hit[0, 0]]))
-    if found is None:
-        return "asked points are none of the scored points"
-    if found < best:
-        return f"asked points score {found!r}, below the best scored {best!r}"
+        rows = rows.reshape(rows.shape[0], V, -1)
+        v = torch.nan_to_num(values.reshape(rows.shape[0], V).double(), nan=-math.inf)
+        best = torch.maximum(best, v.max(0).values)
+        equal = (rows == asked).all(-1)  # [N, V]
+        first = v[equal.to(torch.int8).argmax(0), slices]  # each slice's first equal row
+        here = equal.any(0)
+        found = torch.where(here, torch.maximum(found, first), found)
+        hit |= here
+    for s, (h, f, b) in enumerate(zip(hit.tolist(), found.tolist(), best.tolist())):
+        where = "" if V == 1 else f" of slice {s}"
+        if not h:
+            return f"asked point{where} is none of the points scored there"
+        if f < b:
+            return f"asked point{where} scores {f!r}, below the best scored {b!r}"
     return None
 
 
@@ -194,20 +190,22 @@ def judge(run, limits: Dict[str, float]) -> Verdict:
             continue
         if step.record is None:
             continue
-        post = j.posterior(episode, step.n, step.theta, R.FP64)
-        scale = math.sqrt(float(post.h.variance))
+        post = j.posterior(episode, step.n, step.theta, FP64)
+        draws = _draws(step.record)
         px, pv = step.record.pool
-        numbers["pool_err"] = max(numbers["pool_err"], _gap(pv, j.scores(post, px), scale))
+        numbers["pool_err"] = max(numbers["pool_err"],
+                                  _gap(pv, j.scores(post, px, draws), post.scale))
         if step.record.final is not None:
             fx, fv = step.record.final
-            numbers["point_err"] = max(numbers["point_err"], _gap(fv, j.scores(post, fx), scale))
+            numbers["point_err"] = max(numbers["point_err"],
+                                       _gap(fv, j.scores(post, fx, draws), post.scale))
     for fit in fits(run):
         numbers["fit_gap"] = max(numbers["fit_gap"], j.fit_gap(fit))
     checked = sum(s.record is not None for s in steps)
     return Verdict(numbers, {k: float(limits[k]) for k in NUMBERS}, failed, checked)
 
 
-def control_numbers(run, prec: R.Precision = R.TF32) -> Dict[str, float]:
+def control_numbers(run, prec: Precision = TF32) -> Dict[str, float]:
     """The three numbers with the reference in ``prec`` put in the program's place, on the
     same steps, data and points: its scores of the pool and of the runs' end points at
     the program's hyperparameters, and ``fit_gap`` of where its own fit in ``prec`` ends
@@ -219,13 +217,14 @@ def control_numbers(run, prec: R.Precision = R.TF32) -> Dict[str, float]:
         if step.record is None or asked_failure(step, j.lower, j.upper):
             continue
         episode = run.episodes[step.episode]
-        exact = j.posterior(episode, step.n, step.theta, R.FP64)
+        exact = j.posterior(episode, step.n, step.theta, FP64)
         low = j.posterior(episode, step.n, step.theta, prec)
-        scale = math.sqrt(float(exact.h.variance))
+        draws = _draws(step.record)
         for key, pair in (("pool_err", step.record.pool), ("point_err", step.record.final)):
             if pair is not None:
                 x = pair[0]
-                numbers[key] = max(numbers[key], _gap(j.scores(low, x), j.scores(exact, x), scale))
+                numbers[key] = max(numbers[key], _gap(j.scores(low, x, draws),
+                                                      j.scores(exact, x, draws), exact.scale))
     for fit in fits(run):
         try:
             numbers["fit_gap"] = max(numbers["fit_gap"], j.fit_gap(fit, prec))

@@ -14,10 +14,16 @@ with those fitted hyperparameters on that design; or draws a new design from
 then falls inside the window. An episode ends after ``episode_steps`` steps, or before a step that would take
 the data past ``max_points``.
 
+The model is the configuration's family (``models/<builder>.py``): it builds the model
+and says what the check judges of it. The rule (``rules/<rule>.py``) optimizes one function
+or a vector of V functions, one per slice of the batch; its random draws come from a
+generator reseeded from ``design_seed``, the episode and the step before each ask.
+
 Everything the check needs is kept by reference while the window runs (the program
-replaces its tensors and never writes into them): the hyperparameters before each ask
+replaces its tensors and never writes into them): what the family judges before each ask
 and after each tell, the seed pool and its scores, the scores of the optimizer's last
-runs, and the asked points. See :mod:`benchmarks.harness.check`.
+runs, the asked points, and, for a rule that draws, the generator's state before the ask.
+See :mod:`benchmarks.harness.check`.
 """
 from __future__ import annotations
 
@@ -53,18 +59,23 @@ def generator(device: torch.device, seed: int, *keys: int) -> torch.Generator:
 
 @dataclass
 class AskRecord:
-    """What one call of the acquisition optimizer scored: the seed pool ``[N, 1, E]`` and
-    its scores ``[N, 1]``, and the optimizer's last no-gradient call (its runs' end
-    points) and their scores."""
+    """What one call of the acquisition optimizer scored: the seed pool ``[N, V, E]`` and
+    its scores (``[N, V]``, or ``[N, 1]`` for one function), and the optimizer's last
+    no-gradient call (its runs' end points ``[R, V, E]``) and their scores; for a rule
+    that draws, ``draws()`` gives the raw draws of the ask (``rules/<rule>.py``'s
+    ``draws``). Slice ``v`` of a vectorized function is the ``v``-th of the V points
+    asked."""
 
     pool: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     final: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    draws: Optional[Callable[[], Dict[str, Any]]] = None
 
 
 class Recorder:
     """Wraps an acquisition optimizer so that each call leaves an :class:`AskRecord`:
     the first call without gradients is the seed pool's score, the last one the score of
-    the runs' end points. Only references are kept; nothing is read to the host."""
+    the runs' end points. A vectorized function ``(f, V)`` is wrapped as one. Only
+    references are kept; nothing is read to the host."""
 
     def __init__(self) -> None:
         self.calls = 0
@@ -72,12 +83,11 @@ class Recorder:
 
     def wrap(self, optimizer: Callable) -> Callable:
         def optimize(space, f, generator=None):
-            if isinstance(f, tuple):
-                raise ValueError("the benchmark's rules optimize one function, not a vector")
             record = AskRecord()
+            fn, V = f if isinstance(f, tuple) else (f, None)
 
             def scored(x: torch.Tensor) -> torch.Tensor:
-                value = f(x)
+                value = fn(x)
                 if not torch.is_grad_enabled():
                     if record.pool is None:
                         record.pool = (x, value)
@@ -85,7 +95,7 @@ class Recorder:
                         record.final = (x, value)
                 return value
 
-            points = optimizer(space, scored, generator=generator)
+            points = optimizer(space, scored if V is None else (scored, V), generator=generator)
             self.calls += 1
             self.last = record
             return points
@@ -97,7 +107,7 @@ class Recorder:
 class Step:
     episode: int
     n: int  # points in the data at the ask
-    theta: Any  # the program's hyperparameters at the ask
+    theta: Any  # what the family judges at the ask (its ``theta(model)``)
     start: float = 0.0
     ask_s: float = 0.0
     tell_s: float = 0.0
@@ -107,6 +117,7 @@ class Step:
     record: Optional[AskRecord] = None
     asks: int = 0  # optimizer calls in this ask
     pool_rows: int = 0  # rows of the seed pool the ask scored
+    slices: int = 1  # functions of a vectorized acquisition, one per point asked
     final_rows: int = 0  # end points of the optimizer's runs
     launches: int = 0  # fused-kernel launches in this step
 
@@ -179,9 +190,9 @@ class Campaign:
     def __init__(self, cell: Cell, seed: int, device: torch.device, run: Run):
         from trieste_tpu_torch import AskTellOptimizer, Box, Dataset
         from trieste_tpu_torch.acquisition import generate_continuous_optimizer
-        from trieste_tpu_torch.models.gp import build_gpr
 
-        self._AskTellOptimizer, self._Dataset, self._build_gpr = AskTellOptimizer, Dataset, build_gpr
+        self._AskTellOptimizer, self._Dataset = AskTellOptimizer, Dataset
+        self.family = cell.family_module()
         self.cell, self.seed, self.device, self.run = cell, seed, device, run
         c = cell.config
         self.space = Box(c["lower"], c["upper"], dtype=torch.float32, device=device)
@@ -191,8 +202,11 @@ class Campaign:
         optimizer = self.recorder.wrap(
             generate_continuous_optimizer(num_initial_samples=cell.num_initial_samples)
         )
-        self.rule = cell.rule_module().build(cell.traffic, optimizer)
         self.ask_tell_generator = torch.Generator(device=device)  # reseeded before every ask
+        self.rule_generator = torch.Generator(device=device)  # the rule's draws; reseeded too
+        rule_module = cell.rule_module()
+        self.rule = rule_module.build(cell.traffic, optimizer, self.rule_generator)
+        self.draws = getattr(rule_module, "draws", None)
         self.at = None
         self.episode: Optional[Episode] = None
         self.episode_index = -1
@@ -217,16 +231,10 @@ class Campaign:
         return x, self.objective(x)
 
     def optimizer_on(self, x: torch.Tensor, y: torch.Tensor, theta=None):
-        """An Ask/Tell optimizer on ``(x, y)`` with ``build_gpr`` as the configuration
-        states it (its likelihood variance, fixed, or the default where it states none;
-        the restarts drawn from a generator seeded 0): fitted on the spot, or given the
-        hyperparameters ``theta``."""
+        """An Ask/Tell optimizer on ``(x, y)`` with the family's model as the configuration
+        states it: fitted on the spot, or given ``theta``, what the family judges."""
         data = self._Dataset.from_arrays(x, y)
-        model = self._build_gpr(
-            data, self.space, trainable_likelihood=False,
-            likelihood_variance=self.cell.config["model"].get("likelihood_variance"))
-        if theta is not None:
-            model.params = theta
+        model = self.family.build(self.cell, data, self.space, theta)
         return self._AskTellOptimizer(self.space, data, model, self.rule,
                                       fit_model=theta is None, generator=self.ask_tell_generator)
 
@@ -240,7 +248,7 @@ class Campaign:
             if self.fitted is None:
                 x, y = self.design(c["num_initial_points"], 1, 0)
                 at = self.optimizer_on(x, y)
-                self.fitted = (x, y, at.model.params)
+                self.fitted = (x, y, self.family.theta(at.model))
             x, y, theta = self.fitted
             self.at = self.optimizer_on(x, y, theta=theta)
         self.episode = Episode([x], [y], x.shape[0])
@@ -272,9 +280,12 @@ class Campaign:
         launches = fused_predict.launches
         calls = self.recorder.calls
         at = self.at
-        rec = Step(self.episode_index, len(at.dataset), at.model.params, start=start)
-        self.ask_tell_generator.manual_seed(subseed(
-            self.cell.config["design_seed"], 3, self.episode_index + 1, self.steps_in_episode))
+        rec = Step(self.episode_index, len(at.dataset), self.family.theta(at.model), start=start)
+        keys = (self.episode_index + 1, self.steps_in_episode)
+        self.ask_tell_generator.manual_seed(subseed(self.cell.config["design_seed"], 3, *keys))
+        self.rule_generator.manual_seed(subseed(self.cell.config["design_seed"], 4, *keys))
+        draws = None if self.draws is None else self.draws(
+            self.family, at.model, self.rule_generator.get_state(), self.cell.traffic)
         x = at.ask()
         if timed_spans:
             _sync(self.device)
@@ -284,11 +295,13 @@ class Campaign:
         _sync(self.device)
         rec.end = time.perf_counter()
         rec.ask_s, rec.tell_s = t_tell - t_ask, rec.end - t_tell
-        rec.asked, rec.theta_after = x, at.model.params
+        rec.asked, rec.theta_after = x, self.family.theta(at.model)
         rec.asks = self.recorder.calls - calls
         rec.record = self.recorder.last if rec.asks else None
+        if rec.record is not None:
+            rec.record.draws = draws
         if rec.record is not None and rec.record.pool is not None:
-            rec.pool_rows = rec.record.pool[0].shape[0]
+            rec.pool_rows, rec.slices = rec.record.pool[0].shape[:2]
         if rec.record is not None and rec.record.final is not None:
             rec.final_rows = rec.record.final[0].shape[0]
         rec.launches = fused_predict.launches - launches

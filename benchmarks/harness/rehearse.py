@@ -27,11 +27,18 @@ def overrides(config: str) -> Dict[str, Any]:
 
 def rehearse(name: str, seed: int = 2**31 + 7, steps: int = 4, trace: bool = False,
              limits: Optional[Dict[str, float]] = None) -> Tuple[Dict[str, Any], Any, Any]:
-    """Run cell ``name`` for ``steps`` steps on the CPU; returns the result line, the
-    :class:`~benchmarks.harness.loop.Run` and the verdict."""
+    """Run cell ``name`` of ``BENCHMARK.json`` for ``steps`` steps on the CPU; returns the
+    result line, the :class:`~benchmarks.harness.loop.Run` and the verdict."""
     bench = spec.load_json(spec.ROOT / "BENCHMARK.json")
     config = {w["name"]: w["config"] for w in bench["workloads"]}[name]
     cell = spec.load_cell(name, bench, overrides=overrides(config))
+    return rehearse_cell(cell, seed, steps, trace, limits)
+
+
+def rehearse_cell(cell: spec.Cell, seed: int = 2**31 + 7, steps: int = 4, trace: bool = False,
+                  limits: Optional[Dict[str, float]] = None) -> Tuple[Dict[str, Any], Any, Any]:
+    """:func:`rehearse` of a cell already loaded (with its rehearsal's overrides), such as
+    one that a test builds."""
     run = loop.run_cell(cell, seed, 0.0, trace, torch.device("cpu"), time.perf_counter(),
                         max_steps=steps, log=lambda s: None)
     verdict = check.judge(run, limits or cell.limits)

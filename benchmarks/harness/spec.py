@@ -1,11 +1,14 @@
 """What a cell is made of, found by the names in ``BENCHMARK.json``: the configuration
 ``configs/<config>.json``, the traffic mix ``traffic/<traffic>.json``, the limits of the
 comparison ``limits/<cell>.json``, the rule ``rules/<rule>.py`` and its plain version
-``reference/<rule>.py``, the objective ``objectives/<objective>.py``, and one reader
-``metrics/<metric>.py`` per metric. Adding a cell, a mix or a metric adds files and
-entries; nothing here names one."""
+``reference/<rule>.py``, the model family ``models/<builder>.py`` and its plain version
+``reference/<builder>.py`` (``builder`` is the configuration's ``model.builder``), the
+objective ``objectives/<objective>.py``, and one reader ``metrics/<metric>.py`` per
+metric. Adding a cell, a mix, a family, a rule or a metric adds files and entries;
+nothing here names one."""
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from dataclasses import dataclass, field
@@ -17,9 +20,14 @@ ROOT = BENCH_DIR.parent
 
 
 def load_module(folder: str, name: str):
-    """``benchmarks/<folder>/<name>.py`` as a module; a name may hold ``.`` and ``-``."""
-    path = BENCH_DIR / folder / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"benchmarks.{folder}.{name}", path)
+    """``benchmarks/<folder>/<name>.py`` as a module; a name may hold ``.`` and ``-``.
+    Each file is executed once per process."""
+    return _load_path(BENCH_DIR / folder / f"{name}.py", f"benchmarks.{folder}.{name}")
+
+
+@functools.lru_cache(maxsize=None)
+def _load_path(path: Path, qualified: str):
+    spec = importlib.util.spec_from_file_location(qualified, path)
     if spec is None or not path.exists():
         raise FileNotFoundError(f"no file {path}")
     module = importlib.util.module_from_spec(spec)
@@ -59,6 +67,14 @@ class Cell:
 
     def reference_module(self):
         return load_module("reference", self.traffic["rule"])
+
+    def family_module(self):
+        """The program's side of the configuration's model family."""
+        return load_module("models", self.config["model"]["builder"])
+
+    def family_reference(self):
+        """The plain side of the configuration's model family."""
+        return load_module("reference", self.config["model"]["builder"])
 
     def objective(self):
         return load_module("objectives", self.config["objective"]).objective

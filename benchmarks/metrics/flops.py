@@ -51,9 +51,9 @@ def marginal_flops(n: int, D: int, P: int = 1) -> float:
 
 
 def joint_flops(B: int, n: int, D: int, S: int) -> float:
-    """Monte-Carlo batch EI of one batch of ``B`` points with ``S`` samples: the
-    cross-covariance, the mean, the triangular solve, the batch covariance and its
-    Cholesky, and the samples."""
+    """The joint posterior of one batch of ``B`` points and ``S`` samples from it, as a
+    Monte-Carlo batch rule takes it: the cross-covariance, the mean, the triangular solve,
+    the batch covariance and its Cholesky, and the samples."""
     return (2.0 * B * n * D + 2.0 * B * n + float(B) * n * n + 2.0 * B * B * n
             + 2.0 * B * B * D + B**3 / 3.0 + 2.0 * B * B * S)
 
@@ -62,20 +62,12 @@ GRAD_FACTOR = 3.0  # a value and its gradient by reverse mode: the value and twi
 
 
 def step_flops(step, cell) -> float:
-    """The fixed work of one step: the seed pool's score, one value and gradient of the
-    log marginal likelihood per restart of the fit, the posterior cache, and one value and
-    gradient of the acquisition per optimisation run. L-BFGS iterations are not counted,
-    so the share this gives is a floor."""
-    c, t = cell.config, cell.traffic
-    D, B, P = int(c["dimension"]), cell.num_query_points, 1
-    n_ask, n_tell = step.n, step.n + B
-    N, R = step.pool_rows, step.final_rows
-    if B == 1:
-        pool = fused_predict_flops(N, n_ask, D, P)
-        runs = R * GRAD_FACTOR * marginal_flops(n_ask, D, P)
-    else:
-        S = int(t["sample_size"])
-        pool = N * joint_flops(B, n_ask, D, S)
-        runs = R * GRAD_FACTOR * joint_flops(B, n_ask, D, S)
-    fit = int(c["model"]["num_kernel_samples"]) * lml_value_and_grad_flops(n_tell, D)
-    return pool + fit + cache_flops(n_tell, D) + runs
+    """The fixed work of one step: the family's part, its fit after the tell and the
+    posterior cache (``models/<builder>.py``'s ``flops``), and the rule's part, the seed
+    pool's score and one value and gradient of the acquisition per optimisation run
+    (``rules/<rule>.py``'s ``flops``). L-BFGS iterations are not counted, so the share
+    this gives is a floor."""
+    family = cell.family_module()
+    fit, cache = family.flops(step, cell)
+    pool, runs = cell.rule_module().flops(step, cell, family)
+    return pool + fit + cache + runs

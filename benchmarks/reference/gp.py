@@ -5,61 +5,25 @@ The model is the one ``build_gpr`` states: a Matérn-5/2 ARD kernel with signal 
 ``s``, lengthscales ``l`` and a constant mean ``m``, a Gaussian likelihood of fixed
 variance ``noise``, and a Cholesky jitter on the training covariance. The MAP
 objective adds LogNormal priors on ``s`` and ``l`` (densities in the parameters' own
-space, constants dropped). Everything runs in the precision it is given:
-
-- ``Precision(torch.float64)``, the reference;
-- ``Precision(torch.float32, tf32=True)``, the control: every matrix product rounds its
-  operands to TF32 (10 explicit mantissa bits), as a tensor core does with TF32 on. The
-  rounding is done here, so the CPU tests see the same control as the card.
+space, constants dropped). Everything runs in the precision it is given
+(:mod:`benchmarks.reference.precision`): float64 for the reference, TF32 for the control.
 
 Only ``torch`` is imported: nothing of the program under test.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from dataclasses import dataclass
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from benchmarks.reference.precision import FP64, TF32, Precision, matmul, tf32_round
+
 SQRT5 = math.sqrt(5.0)
+MATERN52_DF = 5  # degrees of freedom of the Matérn-5/2 spectral density (a Student t)
 ROW_BLOCK = 8192  # rows of query points per block: [8192, 1024] float64 is 64 MiB
-
-
-@dataclass(frozen=True)
-class Precision:
-    dtype: torch.dtype
-    tf32: bool = False
-
-
-FP64 = Precision(torch.float64)
-TF32 = Precision(torch.float32, tf32=True)
-
-
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """``x`` (float32) rounded to TF32: the nearest value with 10 explicit mantissa bits
-    (ties away from zero)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-@contextlib.contextmanager
-def _matmul_mode(prec: Precision) -> Iterator[None]:
-    """Let the card's matrix products use TF32 under the control, and only there."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = prec.tf32
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
-
-
-def matmul(a: torch.Tensor, b: torch.Tensor, prec: Precision) -> torch.Tensor:
-    if prec.tf32:
-        a, b = tf32_round(a), tf32_round(b)
-    with _matmul_mode(prec):
-        return a @ b
+TRAJECTORY_BLOCK = 2**23  # elements of the features [rows, V, m] per block: 64 MiB
 
 
 @dataclass(frozen=True)
@@ -220,8 +184,14 @@ class Posterior:
         self.prec = prec
         self.h = h.to(prec)
         self.X = X.to(prec.dtype)
+        self.Y = Y.to(prec.dtype)
         self.L = _train_cholesky(self.X, self.h, prec)
-        self.alpha = torch.cholesky_solve(Y.to(prec.dtype) - self.h.mean, self.L)
+        self.alpha = torch.cholesky_solve(self.Y - self.h.mean, self.L)
+
+    @property
+    def scale(self) -> float:
+        """The unit the gaps of scores are measured in: the signal's standard deviation."""
+        return math.sqrt(float(self.h.variance))
 
     def _marginal(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         Kxn = kernel(x, self.X, self.h, self.prec)
@@ -249,6 +219,62 @@ class Posterior:
     def eta(self) -> torch.Tensor:
         """The incumbent: the least posterior mean over the training rows."""
         return self.marginal(self.X)[0].min()
+
+    def trajectory(self, draws: Dict[str, Optional[torch.Tensor]]) -> Callable[[torch.Tensor], torch.Tensor]:
+        """V posterior function draws ``x [N, V, D] -> [N, V]``, one per slice, made from
+        the raw draws the program's trajectory took: ``frequency_normals [m, D]`` and
+        ``chi2_normals [m, 5]`` (the spectral frequencies before the lengthscales),
+        ``phase_uniforms [m]``, ``prior_weights [V, m]`` and ``noise_normals [V, C]``
+        (``C`` the data's capacity, its first ``n`` columns for the ``n`` rows; ``None``
+        where ``C`` exceeds ``m``).
+
+        The features are ``phi(x) = sqrt(2s/m) cos(x W^T + b)`` with ``W = z sqrt(5/chi2)
+        / l`` (a Matérn-5/2 spectral draw: a Student t with 5 degrees of freedom) and ``b
+        = 2 pi u``. The draw is the posterior of the features' weights (Bayesian linear
+        regression, Rasmussen and Williams section 2.1): where the data's capacity is at
+        most ``m``, by the pathwise update ``theta = eps + Phi^T (Phi Phi^T + (noise +
+        jitter) I)^-1 (y - Phi eps - sqrt(noise) eps_n)`` through its own Cholesky factor;
+        else ``theta = mu + sqrt(noise) A^-T eps`` with ``A A^T = Phi^T Phi + (noise +
+        jitter) I`` and ``mu = A^-T A^-1 Phi^T y``. Everything is worked out again here,
+        in this posterior's precision."""
+        prec, dt, h = self.prec, self.prec.dtype, self.h
+        z = draws["frequency_normals"].to(dt)
+        chi2 = torch.square(draws["chi2_normals"].to(dt)).sum(-1, keepdim=True)
+        if draws["chi2_normals"].shape[-1] != MATERN52_DF:
+            raise ValueError("a Matérn-5/2 spectral draw takes 5 normals a frequency")
+        W = z * torch.sqrt(MATERN52_DF / chi2) / h.lengthscales  # [m, D]
+        b = 2.0 * math.pi * draws["phase_uniforms"].to(dt)  # [m]
+        m = W.shape[0]
+        amplitude = torch.sqrt(2.0 * h.variance / m)
+
+        def features(x: torch.Tensor) -> torch.Tensor:
+            return amplitude * torch.cos(matmul(x, W.T, prec) + b)
+
+        eps = draws["prior_weights"].to(dt)  # [V, m]
+        Phi = features(self.X)  # [n, m]
+        y = (self.Y - h.mean)[:, 0]  # [n]
+        ridge = h.noise + h.jitter
+        if draws.get("noise_normals") is not None:
+            n = self.X.shape[0]
+            eps_n = draws["noise_normals"][:, :n].to(dt)  # [V, n]
+            eye = torch.eye(n, dtype=dt, device=Phi.device)
+            L = torch.linalg.cholesky(matmul(Phi, Phi.T, prec) + ridge * eye)
+            resid = y[None, :] - matmul(eps, Phi.T, prec) - math.sqrt(h.noise) * eps_n
+            theta = eps + matmul(torch.cholesky_solve(resid.T, L).T, Phi, prec)  # [V, m]
+        else:
+            eye = torch.eye(m, dtype=dt, device=Phi.device)
+            L = torch.linalg.cholesky(matmul(Phi.T, Phi, prec) + ridge * eye)
+            mu = torch.cholesky_solve(matmul(Phi.T, y[:, None], prec), L)[:, 0]
+            spread = torch.linalg.solve_triangular(L.T, eps.T, upper=True).T
+            theta = mu[None, :] + math.sqrt(h.noise) * spread
+
+        def f(x: torch.Tensor) -> torch.Tensor:
+            x = x.to(dt)
+            rows = max(1, TRAJECTORY_BLOCK // (x.shape[1] * m))
+            return torch.cat([h.mean + (features(x[i:i + rows]) * theta).sum(-1)
+                              for i in range(0, x.shape[0], rows)])
+
+        return f
 
 
 def normal_pdf(z: torch.Tensor) -> torch.Tensor:
@@ -299,7 +325,7 @@ def default_noise_and_priors(Y0: torch.Tensor, extent: torch.Tensor, dimension: 
 
 
 __all__ = [
-    "FP64", "TF32", "Hyper", "Posterior", "Precision", "Priors", "batch_mc_expected_improvement",
+    "FP64", "TF32", "MATERN52_DF", "Hyper", "Posterior", "Precision", "Priors", "batch_mc_expected_improvement",
     "batched", "default_noise_and_priors", "expected_improvement", "fit_local", "pack",
     "fit_gap", "tf32_round", "unpack",
 ]

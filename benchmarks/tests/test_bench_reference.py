@@ -135,3 +135,29 @@ def test_step_counts_by_hand():
     B, S = 3, 2000
     assert FLOPS.joint_flops(B, 25, 2, S) == pytest.approx(
         300 + 150 + 1875 + 450 + 36 + 9 + 36_000)
+
+
+@pytest.mark.parametrize("features", [64, 8])  # the capacity 16 at most m, and above it
+def test_reference_trajectory_equals_the_programs_in_float64(features):
+    """The family's replay of a trajectory's raw draws, and the reference's trajectory
+    from them, against the program's own trajectory drawn from the same generator: the
+    same function to rounding, on both of the program's routes."""
+    from trieste_tpu_torch import Box, Dataset
+    from trieste_tpu_torch.models.gp import build_gpr
+
+    torch.manual_seed(3)
+    X, x = torch.rand(12, 3, dtype=F64), torch.rand(40, 4, 3, dtype=F64)
+    Y = torch.cos(3 * X.sum(-1, keepdim=True))
+    data = Dataset.from_arrays(X, Y)
+    space = Box([0.0] * 3, [1.0] * 3, dtype=F64, device="cpu")
+    model = build_gpr(data, space, likelihood_variance=1e-3,
+                      num_rff_features=features)
+    g = torch.Generator().manual_seed(11)
+    draws = spec.load_module("models", "build_gpr").trajectory_draws(model, g.get_state(), 4)
+    program = model.trajectory_sampler().get_trajectory(g, batch_size=4)(x)[..., 0]
+    k = model.params.kernel
+    h = R.Hyper(k.variance, k.lengthscales.reshape(-1), model.params.mean_constant, 1e-3,
+                1e-6)  # float64's Cholesky jitter
+    reference = R.Posterior(X, Y, h, R.FP64).trajectory(draws())(x)
+    assert (draws()["noise_normals"] is None) == (features < 16)
+    torch.testing.assert_close(reference, program, rtol=1e-8, atol=1e-8)

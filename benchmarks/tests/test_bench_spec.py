@@ -74,8 +74,11 @@ def test_end_to_end_and_per_layer_rules():
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_resolves_to_its_files(cell):
     c = spec.load_cell(cell, BENCH)
-    assert callable(c.rule_module().build)
+    assert callable(c.rule_module().build) and callable(c.rule_module().flops)
     assert callable(c.reference_module().score)
+    family, reference = c.family_module(), c.family_reference()
+    assert all(callable(getattr(family, f)) for f in ("build", "theta", "flops"))
+    assert all(callable(getattr(reference, f)) for f in ("episode", "posterior", "fit_gap"))
     assert callable(c.objective())
     assert set(c.limits) == {"pool_err", "point_err", "fit_gap"}
     assert all(0 < v < math.inf for v in c.limits.values())
@@ -104,25 +107,57 @@ def test_config_files(config):
     assert data["dtype"] == "float32" and data["tf32"] is False
 
 
-def test_model_constants_are_build_gprs_defaults():
-    """The reference's constants are the program's defaults, stated in each file."""
+def build_gpr_program_defaults():
+    """The program's values of the ``build_gpr`` family's ``DEFAULTS``."""
+    import inspect
+
     from trieste_tpu_torch.models.gp import builders, priors
     from trieste_tpu_torch.models.gp.gpr import GaussianProcessRegression
     from trieste_tpu_torch.utils.misc import jitter_for
-    import inspect
 
     init = inspect.signature(GaussianProcessRegression.__init__).parameters
-    for config in BENCH["configs"]:
-        m = spec.load_json(spec.ROOT / config["file"])["model"]
-        assert m["signal_noise_ratio"] == builders.SIGNAL_NOISE_RATIO_LIKELIHOOD
-        assert m["lengthscale_factor"] == builders.KERNEL_LENGTHSCALE
-        assert m["prior_scale"] == priors.KERNEL_PRIOR_SCALE
-        assert m["squeeze_log_range"] == pytest.approx(priors.SQUEEZE_LOG_RANGE, rel=1e-15)
-        assert m["cholesky_jitter"] == jitter_for(torch.float32)
-        assert m["num_kernel_samples"] == init["num_kernel_samples"].default
-        assert m["max_optimize_iters"] == init["max_optimize_iters"].default
-        noise = m.get("likelihood_variance")
-        assert noise is None or (isinstance(noise, float) and noise > 0)
+    return {
+        "signal_noise_ratio": builders.SIGNAL_NOISE_RATIO_LIKELIHOOD,
+        "lengthscale_factor": builders.KERNEL_LENGTHSCALE,
+        "prior_scale": priors.KERNEL_PRIOR_SCALE,
+        "squeeze_log_range": priors.SQUEEZE_LOG_RANGE,
+        "cholesky_jitter": jitter_for(torch.float32),
+        "num_kernel_samples": init["num_kernel_samples"].default,
+        "max_optimize_iters": init["max_optimize_iters"].default,
+        "num_rff_features": init["num_rff_features"].default,
+    }
+
+
+PROGRAM_DEFAULTS = {"build_gpr": build_gpr_program_defaults}
+
+
+@pytest.mark.parametrize("builder", sorted(PROGRAM_DEFAULTS))
+def test_family_files_state_the_builders_defaults(builder):
+    """The family's file states the builder's defaults it relies on, and they are the
+    program's."""
+    stated = spec.load_module("models", builder).DEFAULTS
+    program = PROGRAM_DEFAULTS[builder]()
+    assert set(stated) == set(program)
+    for key, value in stated.items():
+        assert value == pytest.approx(program[key], rel=1e-15), key
+
+
+@pytest.mark.parametrize(
+    "config", [c for c in BENCH["configs"]
+               if spec.load_json(spec.ROOT / c["file"])["model"]["builder"] == "build_gpr"],
+    ids=lambda c: c["name"])
+def test_model_constants_are_build_gprs_defaults(config):
+    """The reference's constants in a ``build_gpr`` configuration are the program's
+    defaults, as the family's file states them."""
+    defaults = spec.load_module("models", "build_gpr").DEFAULTS
+    m = spec.load_json(spec.ROOT / config["file"])["model"]
+    for key in ("signal_noise_ratio", "lengthscale_factor", "prior_scale", "cholesky_jitter",
+                "num_kernel_samples", "max_optimize_iters"):
+        assert m[key] == defaults[key], key
+    assert m["squeeze_log_range"] == pytest.approx(defaults["squeeze_log_range"], rel=1e-15)
+    assert m.get("num_rff_features", defaults["num_rff_features"]) == defaults["num_rff_features"]
+    noise = m.get("likelihood_variance")
+    assert noise is None or (isinstance(noise, float) and noise > 0)
 
 
 @pytest.mark.parametrize("name,problem", [("scaled_branin", "ScaledBranin")])
